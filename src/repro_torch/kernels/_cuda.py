@@ -1,0 +1,161 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for Hopper (``sm_90a``) into its own shared library, loaded with
+``ctypes``.  The build happens at first use, from the package's own
+sources, into ``build/kernels/`` at the repository root (listed in
+``.gitignore``); the library's file name carries a digest of its source
+and flags, so an edited source is rebuilt and never mixed with a stale
+binary.
+
+:func:`check_batches` is the host side of every device fixpoint loop: how
+many rounds to launch before reading the one "changed" flag word.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc`` or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterator, List, Sequence
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+# a fixpoint loop reads its flag after 1, 2, 4, ... rounds, then every
+# CHECK_CAP rounds.  Each read costs a host sync; a larger cap launches
+# more full rounds past the fixpoint (up to CHECK_CAP - 1, half that on
+# average).  32 keeps both small on the bundled designs' 450-8200 rounds.
+CHECK_CAP = 32
+
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the port's CUDA kernels "
+            "are built from source at first use on a machine with the CUDA "
+            "toolkit")
+    return path
+
+
+class CudaLib:
+    """One kernel source, its shared library and its launch counter.
+
+    ``launches`` is a plain integer that the kernel's Python wrapper
+    raises by one each time it launches the kernel, and nowhere else.
+    """
+
+    def __init__(self, name: str, signatures: Dict[str, Sequence]):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self.signatures = signatures
+        self.launches = 0
+        self._lib = None
+        self._lock = threading.Lock()
+
+    # -- build -----------------------------------------------------------
+    def target(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
+
+    def build(self) -> None:
+        """Compile the source with ``nvcc`` unless its library exists."""
+        out = self.target()
+        if out.exists():
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
+             str(self.source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.source}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+
+    # -- bind ------------------------------------------------------------
+    def lib(self):
+        """The loaded library (built first if needed)."""
+        with self._lock:
+            if self._lib is None:
+                self.build()
+                lib = ctypes.CDLL(str(self.target()))
+                for fn, argtypes in self.signatures.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = list(argtypes)
+                    f.restype = I
+                err = getattr(lib, f"{self.name}_error_string")
+                err.argtypes = [I]
+                err.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    def call(self, fn: str, *args) -> None:
+        """Call launcher ``fn``; raise if it reports a CUDA error."""
+        lib = self.lib()
+        code = getattr(lib, fn)(*args)
+        if code != 0:
+            msg = getattr(lib, f"{self.name}_error_string")(code).decode()
+            raise RuntimeError(f"{self.name}.{fn}: CUDA error {code}: {msg}")
+
+
+SPARSE = CudaLib("maxplus_sparse", {
+    "maxplus_sparse_round": [P, P, P, P, P, I, P, P, P, I, P, P, P, P, P, P,
+                             I, P, I, I, P, P, P, P],
+})
+DENSE = CudaLib("maxplus_dense", {
+    "maxplus_dense_sweep": [P, P, P, I, P, I, I, P, P],
+})
+LIBS: List[CudaLib] = [SPARSE, DENSE]
+
+
+def check_batches(limit: int) -> Iterator[int]:
+    """Batch sizes 1, 2, 4, ... up to :data:`CHECK_CAP`, summing to
+    ``limit``: a fixpoint loop launches one batch of rounds, then reads its
+    flag, and stops at the first batch whose last round changed nothing."""
+    done, every = 0, 1
+    while done < limit:
+        step = min(every, limit - done)
+        yield step
+        done += step
+        every = min(2 * every, CHECK_CAP)
+
+
+def resolve_device(device):
+    """``device`` as a ``torch.device``; a CUDA device must exist.
+
+    The port's entry points default to ``"cuda"`` and never carry on on
+    the CPU by themselves: without a card the caller must ask for
+    ``device="cpu"`` (the plain PyTorch versions of the kernels).
+    """
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but no CUDA device is available; pass "
+            f"device='cpu' to run the plain PyTorch versions of the kernels")
+    return dev
+
+
+def stream_of(tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``tensor``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream
