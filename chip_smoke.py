@@ -9,16 +9,16 @@ CUDA toolkit::
 Phases, each printing its own line:
 
   1. environment: Python, torch and CUDA versions, the card's name and
-     power limit (``nvidia-smi``), and the timed ``nvcc`` build of both
-     hand-written kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-     source, started together);
-  2. each kernel against its plain PyTorch version on the card, on seeded
-     synthetic inputs (kernel 1: random chains and edges exported with
-     ``export_chain_flat``, K = 256; kernel 2: a random [4, 2048, 2048]
-     int32 batch), bit for bit;
-  3-6. the main path — simulate a design, compile its graph, re-solve it
-     under a block of depth configs — through the entry points a user
-     calls (``solve_block_status`` / ``resimulate_batch`` with
+     power limit (``nvidia-smi``), and the timed ``nvcc`` build of the
+     three hand-written kernels from ``src/repro_torch/csrc`` (one
+     ``nvcc`` per source, started together);
+  2. the two max-plus kernels against their plain PyTorch versions on the
+     card, on seeded synthetic inputs (kernel 1: random chains and edges
+     exported with ``export_chain_flat``, K = 256; kernel 2: a random
+     [4, 2048, 2048] int32 batch), bit for bit;
+  3-6. the simulator's main path — simulate a design, compile its graph,
+     re-solve it under a block of depth configs — through the entry points
+     a user calls (``solve_block_status`` / ``resimulate_batch`` with
      ``backend="cuda"`` or ``"cuda_dense"``):
        3. ``skynet_like()`` at its defaults (102 452 nodes), K = 4096;
        4. ``matmul_stream()`` and ``merge_sort_staged(8)``, K = 1024;
@@ -35,12 +35,40 @@ Phases, each printing its own line:
      its memory bound, and peak device memory.  The bound counts the
      rounds (sweeps) the fixpoint needs, up to and including the first
      that changes nothing; the loop launches more, because the host reads
-     the flag only every few rounds, and those are reported apart.
+     the flag only every few rounds, and those are reported apart;
+  8. the flash-attention kernel against its plain version on the card, on
+     seeded inputs: (a) smollm-135m's attention, B 4, S 4096, 9 heads over
+     3, hd 64, bf16, causal; (b) gemma2-2b's, B 1, S 8192, 8 heads over 4,
+     hd 256, bf16, window 4096, softcap 50; (c) f32, ragged S = 1000,
+     hd 32;
+  9-10. the LM serving path on smollm-135m at its published widths (30
+     layers, d_model 576) with seeded random weights, through the entry
+     points a user calls: the prefill step (``make_prefill_step``, B 4,
+     S 4096, bf16), ``ServeEngine.generate`` (8 prompts of 128 tokens, 32
+     new tokens) and ``ContinuousBatchingEngine.run`` (12 requests of 32
+     tokens over 8 slots, 16 new tokens each).  Launch counts are zeroed
+     just before and read just after these three calls: the flash kernel
+     must have run once per layer (30), in the prefill.  Then:
+       9. the prefill's last-position logits against the same step under
+          ``plain_kernels()``, in bf16 and in float32 compute;
+      10. the engines' outputs (shapes, lengths, all requests done), and
+          the prefill step's logits against the decode path's after the
+          same prompt, in float32 compute;
+  11. timings: the flash kernel at shape (a) and at the reference's
+     prefill_32k length (B 1, S 32 768), beside its plain version (at (a)
+     only: its [BH, S, S] scores do not fit at 32k), one PyTorch call that
+     computes the same function (``scaled_dot_product_attention`` with
+     ``enable_gqa``: the yardstick, used nowhere in the port) and its bound;
+     the prefill step's wall time, decode tokens per second, and peak
+     device memory.
 
-The last two lines are the card's name and power limit, then one JSON
-object ``{"ok": true, "device": {...}}``; the line before them is the
-``{"kernels": [...]}`` record.  Any failure exits non-zero and prints no
-result.  Depth rows come from ``numpy.random.default_rng(0)``.
+Float32 matrix products run in full float32 (``allow_tf32`` off), so the
+float32 comparisons measure the kernels, not TF32.  The last two lines are
+the card's name and power limit, then one JSON object ``{"ok": true,
+"device": {...}}``; the line before them is the ``{"kernels": [...]}``
+record.  Any failure exits non-zero and prints no result.  Depth rows,
+tokens and attention inputs come from ``numpy.random.default_rng(0)``;
+weights from ``torch.Generator().manual_seed(0)``.
 """
 import concurrent.futures
 import contextlib
@@ -55,9 +83,12 @@ import traceback
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# H100 SXM data sheet: HBM3 at 3.35 TB/s; the kernels move int32 bytes
-# and use no tensor cores, so bytes bound them
+# H100 SXM data sheet: HBM3 at 3.35 TB/s; the max-plus kernels move int32
+# bytes and use no tensor cores, so bytes bound them
 HBM_BYTES_PER_S = 3.35e12
+# H100 SXM data sheet: dense bf16 tensor-core rate; attention's bound is
+# its FLOPs at this rate (or its bytes, where those take longer)
+BF16_FLOPS_PER_S = 989e12
 FAILURES = []
 
 
@@ -172,11 +203,22 @@ def main():
     from repro_torch.designs.paper import fig4_ex5
     from repro_torch.designs.typea import (matmul_stream, merge_sort_staged,
                                            skynet_like)
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.maxplus import kernel, ops, ref, sparse
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+    from repro_torch.train.step import make_prefill_step
 
     dev = torch.device("cuda")
     card = smi()
+    # float32 products in full float32, so the float32 comparisons below
+    # measure the kernels and not TF32 (which keeps ~3 decimal digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---------------------------------------------------------------- 1
     with phase("1 environment"):
@@ -195,10 +237,12 @@ def main():
     def sync():
         torch.cuda.synchronize()
 
-    def cuda_time(fn, reps):
-        """Median ms of ``reps`` runs of fn (after one warm-up run)."""
-        fn()
-        sync()
+    def cuda_time(fn, reps, warm_up=True):
+        """Median ms of ``reps`` runs of fn on CUDA events, after one
+        warm-up run (``warm_up=False`` when fn has just run already)."""
+        if warm_up:
+            fn()
+            sync()
         ms = []
         for _ in range(reps):
             a = torch.cuda.Event(enable_timing=True)
@@ -227,14 +271,15 @@ def main():
         """Route the device lanes through the plain PyTorch versions (on
         the same card) — the comparison, never the main path."""
         saved = (sparse.solve_chains, kernel.maxplus_sweep,
-                 ops.maxplus_sweep)
+                 ops.maxplus_sweep, fa_ops.flash_attention_bhsd)
         sparse.solve_chains = ref.solve_chains_ref
         kernel.maxplus_sweep = ops.maxplus_sweep = ref.maxplus_sweep_ref
+        fa_ops.flash_attention_bhsd = fa_ref.attention_ref
         try:
             yield
         finally:
             (sparse.solve_chains, kernel.maxplus_sweep,
-             ops.maxplus_sweep) = saved
+             ops.maxplus_sweep, fa_ops.flash_attention_bhsd) = saved
 
     def same_status(a, b, what):
         for x, y, f in zip(a[:3], b[:3], ("status", "cycles", "violated")):
@@ -437,9 +482,9 @@ def main():
         log(f"  status counts {np.bincount(o.status, minlength=4).tolist()}")
 
     with phase("launch counts"):
-        for name, count in launches.items():
-            check(count > 0, f"kernel {name} was not launched on the main "
-                  f"path")
+        for name in ("maxplus_sparse", "maxplus_dense"):
+            check(launches[name] > 0, f"kernel {name} was not launched on "
+                  f"the simulator's main path")
 
     # ---------------------------------------------------------------- 7
     kernels = []
@@ -557,6 +602,273 @@ def main():
             "library_ms": None, "shape": top["shape"],
             "sweeps": top["sweeps"], "launched": top["launched"],
             "by_shape": by_shape})
+
+    # ---------------------------------------------------------------- 8
+    def attn_inputs(B, S, H, Hkv, hd, dtype):
+        """Seeded q [B*H, S, hd], k and v [B*Hkv, S, hd] on the card."""
+        return [torch.from_numpy(rng.standard_normal((B * h, S, hd),
+                                                     dtype=np.float32))
+                .to(dev, dtype) for h in (H, Hkv, Hkv)]
+
+    def kept_pairs(S, causal, window):
+        """(q, k) pairs the masks keep, per head."""
+        qi = np.arange(S, dtype=np.int64)
+        hi = qi + 1 if causal else np.full(S, S, np.int64)
+        lo = np.maximum(0, qi - window + 1) if window > 0 else 0
+        return int((hi - lo).sum())
+
+    def attn_bound(B, S, H, Hkv, hd, dtype, causal=True, window=0):
+        """(bound ms, bound_by): 4 hd FLOPs per kept pair (q.k and p.v) at
+        the bf16 tensor-core rate, or q, k, v, o moved once at HBM rate."""
+        flops = 4 * B * H * hd * kept_pairs(S, causal, window)
+        nbytes = torch.tensor([], dtype=dtype).element_size() \
+            * B * S * hd * (2 * H + 2 * Hkv)
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    # (name, B, S, H, Hkv, hd, dtype, window, softcap, rtol, atol)
+    # bf16: kernel and plain version both sum in f32 and round the output
+    # to bf16 once; their f32 sums differ by ~1e-6, so an output may round
+    # to the neighbouring bf16 value: one bf16 step, 2^-7 relative.
+    # f32: the two sum in another order: 2e-5.
+    shapes8 = [
+        ("a smollm-135m", 4, 4096, 9, 3, 64, torch.bfloat16, 0, 0.0,
+         2.0 ** -7, 1e-3),
+        ("b gemma2-2b", 1, 8192, 8, 4, 256, torch.bfloat16, 4096, 50.0,
+         2.0 ** -7, 1e-3),
+        ("c f32 ragged", 2, 1000, 6, 2, 32, torch.float32, 0, 0.0,
+         2e-5, 2e-5),
+    ]
+    flash_err = {}
+    with phase("8 flash kernel vs plain version (seeded inputs)"):
+        for name, B, S, H, Hkv, hd, dt, w, cap, rtol, atol in shapes8:
+            q, k, v = attn_inputs(B, S, H, Hkv, hd, dt)
+            got = fa_kernel.flash_attention_bhsd(
+                q, k, v, window=w, softcap=cap, group_size=H // Hkv)
+            sync()
+            want = fa_ref.attention_ref(q, k, v, window=w, softcap=cap,
+                                        group_size=H // Hkv)
+            err = (got.float() - want.float()).abs().max().item()
+            flash_err[name] = err
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)
+            log(f"  ({name}) B={B} S={S} H={H}/{Hkv} hd={hd} {dt} "
+                f"window={w} softcap={cap}: max abs err {err:.3g} "
+                f"(rtol {rtol:.3g}, atol {atol:.3g})")
+            del q, k, v, got, want
+
+    # ------------------------------------------- LM main path (9 - 10)
+    cfg = get_arch("smollm-135m")
+    lm_out = {}
+    with phase("LM main path: smollm-135m prefill + serving (counted)"):
+        t0 = time.perf_counter()
+        params = api.init_params(0, cfg, device=dev)
+        log(f"  {cfg.name}: {sum(p.numel() for p in params.parameters())} "
+            f"parameters, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"heads {cfg.num_heads}/{cfg.num_kv_heads}, dtype {cfg.dtype} "
+            f"(init {time.perf_counter() - t0:.2f} s)")
+        toks9 = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (4, 4096))).to(dev)
+        prompts10 = rng.integers(0, cfg.vocab_size, (8, 128))
+        requests10 = [rng.integers(0, cfg.vocab_size, 32) for _ in range(12)]
+        prefill = make_prefill_step(cfg)
+        sync()
+        for lib in _cuda.LIBS:
+            lib.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lm_out["prefill"] = prefill(params, {"tokens": toks9})
+        sync()
+        lm_out["prefill_s"] = time.perf_counter() - t0
+        lm_out["prefill_peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lm_out["generate"] = ServeEngine(cfg, params, batch=8,
+                                         max_len=256).generate(prompts10, 32)
+        sync()
+        lm_out["generate_s"] = time.perf_counter() - t0
+        cb = ContinuousBatchingEngine(cfg, params, batch=8, max_len=512)
+        t0 = time.perf_counter()
+        lm_out["cb"] = cb.run(requests10, 16)
+        sync()
+        lm_out["cb_s"] = time.perf_counter() - t0
+        lm_out["serve_peak"] = torch.cuda.max_memory_allocated()
+        lm_launches = {lib.name: lib.launches for lib in _cuda.LIBS}
+        log(f"  prefill B=4 S=4096: {lm_out['prefill_s']:.3f} s (first "
+            f"call); generate 8x(128+32): {lm_out['generate_s']:.3f} s; "
+            f"continuous batching 12x(32+16) over 8 slots: "
+            f"{lm_out['cb_s']:.3f} s")
+        log(f"launches on the LM path: {lm_launches}")
+        check(lm_launches["flash_attention"] == cfg.num_layers,
+              f"flash kernel launched {lm_launches['flash_attention']} "
+              f"times in one prefill, not once per layer "
+              f"({cfg.num_layers})")
+
+    lm_err = {}
+    if "prefill" in lm_out:
+        with phase("9 prefill step vs plain version (bf16 and float32)"):
+            got = lm_out["prefill"].float()
+            vp = params.embed.shape[0]
+            check(tuple(got.shape) == (4, vp) and
+                  bool(torch.isfinite(got).all()), f"prefill logits not "
+                  f"finite or of shape (4, {vp})")
+            with plain_kernels():
+                want = prefill(params, {"tokens": toks9}).float()
+            # bf16 activations through 30 layers: each layer's attention
+            # output may round to a neighbouring bf16 value (one step,
+            # 2^-7 relative), and the residual stream carries it on; a
+            # 30-layer, d_model-192 rehearsal on the CPU differed by 1.6e-2
+            # on logits of magnitude ~1.  Allowed: 0.1 absolute.
+            lm_err["bf16"] = (got - want).abs().max().item()
+            check(lm_err["bf16"] <= 0.1, f"bf16 prefill logits differ by "
+                  f"{lm_err['bf16']:.3g} > 0.1")
+            log(f"  bf16: max abs diff {lm_err['bf16']:.3g} (max |logit| "
+                f"{want.abs().max().item():.3g}; argmax agree "
+                f"{bool(torch.equal(got.argmax(-1), want.argmax(-1)))})")
+            cfg32 = cfg.replace(dtype="float32")
+            prefill32 = make_prefill_step(cfg32)
+            got32 = prefill32(params, {"tokens": toks9})
+            with plain_kernels():
+                want32 = prefill32(params, {"tokens": toks9})
+            # float32 throughout: summation order only, 1e-3 absolute
+            lm_err["f32"] = (got32 - want32).abs().max().item()
+            check(lm_err["f32"] <= 1e-3, f"f32 prefill logits differ by "
+                  f"{lm_err['f32']:.3g} > 1e-3")
+            log(f"  float32: max abs diff {lm_err['f32']:.3g}")
+            del got, want, got32, want32
+
+        with phase("10 serving outputs; prefill vs decode (float32)"):
+            gen = lm_out["generate"]
+            check(gen.shape == (8, 32) and gen.min() >= 0
+                  and gen.max() < cfg.vocab_size, f"generate gave "
+                  f"{gen.shape}, ids {gen.min()}..{gen.max()}")
+            done = lm_out["cb"]
+            check(len(done) == 12 and all(len(t) == 16 for _, t in done),
+                  f"continuous batching finished {len(done)} of 12 "
+                  f"requests, lengths {[len(t) for _, t in done]}")
+            check({s for s, _ in done} == set(range(8)),
+                  "not every slot served a request")
+            # the decode path keeps K/V in bf16 (as the reference does);
+            # the reference's own test_decode_matches_forward_dense holds
+            # the two to 2e-2, and so does this, at 30 layers
+            cfg32 = cfg.replace(dtype="float32")
+            prompt = prompts10[:2]
+            full = make_prefill_step(cfg32)(
+                params, {"tokens": torch.from_numpy(prompt).to(dev)})
+            step, _ = ServeEngine(cfg32, params, batch=2,
+                                  max_len=128).prefill(prompt)
+            lm_err["decode"] = (full - step[:, 0]).abs().max().item()
+            check(lm_err["decode"] <= 2e-2, f"prefill and decode logits "
+                  f"differ by {lm_err['decode']:.3g} > 2e-2")
+            log(f"  generate {gen.shape}; continuous batching "
+                f"{len(done)} requests, slots "
+                f"{[s for s, _ in done]}; prefill vs decode max abs diff "
+                f"{lm_err['decode']:.3g} (max |logit| "
+                f"{full.abs().max().item():.3g})")
+
+    # --------------------------------------------------------------- 11
+    def sdpa(q, k, v, B, H, Hkv):
+        """The yardstick: one PyTorch call on the same tensors."""
+        S, hd = q.shape[1:]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.view(B, H, S, hd), k.view(B, Hkv, S, hd),
+            v.view(B, Hkv, S, hd), is_causal=True, enable_gqa=True)
+
+    def device_busy(fn):
+        """Kernel time of one fn() under torch.profiler (device clock; one
+        stream, so kernels do not overlap) over the median time of fn()
+        unprofiled on CUDA events, after a warm-up: the profiler's host
+        overhead stretches the profiled run, not the unprofiled one."""
+        from torch.profiler import ProfilerActivity, profile
+        wall_ms = cuda_time(fn, 3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        dev = [e for e in prof.events() if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA]
+        if not dev:
+            return f"not measured (the profiler saw no device events; " \
+                   f"unprofiled {wall_ms:.2f} ms)"
+        busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        return (f"{busy_ms:.2f} ms of kernels in {wall_ms:.2f} ms "
+                f"unprofiled (median of 3; {100 * busy_ms / wall_ms:.1f} % "
+                f"busy), {len(dev)} kernels")
+
+    def decode5():
+        """Five decode steps of 8 sequences, as ServeEngine runs them."""
+        cache = api.init_cache(cfg, 8, 256, device=dev)
+        tok = torch.zeros(8, 1, dtype=torch.int32, device=dev)
+        for _ in range(5):
+            _, cache = api.decode_step(params, tok, cache, cfg)
+
+    with phase("11 timings"):
+        by_shape = []
+        for label, B, S, plain_fits in (("a smollm-135m", 4, 4096, True),
+                                        ("prefill_32k", 1, 32768, False)):
+            H, Hkv, hd, dt = 9, 3, 64, torch.bfloat16
+            q, k, v = attn_inputs(B, S, H, Hkv, hd, dt)
+            call = (lambda: fa_kernel.flash_attention_bhsd(
+                q, k, v, group_size=H // Hkv))
+            k_ms = cuda_time(call, 5 if plain_fits else 3)
+            lib_ms = cuda_time(lambda: sdpa(q, k, v, B, H, Hkv), 5)
+            vs_lib = (call().float() - sdpa(q, k, v, B, H, Hkv).float()
+                      .view(B * H, S, hd)).abs().max().item()
+            p_ms = err = None
+            if plain_fits:
+                p_ms = cuda_time(lambda: fa_ref.attention_ref(
+                    q, k, v, group_size=H // Hkv), 2)
+                err = flash_err["a smollm-135m"]
+            bound_ms, bound_by = attn_bound(B, S, H, Hkv, hd, dt)
+            by_shape.append({
+                "shape": f"{label}: B={B} S={S} H={H}/{Hkv} hd={hd} bf16 "
+                         f"causal", "ms": k_ms, "plain_ms": p_ms,
+                "library_ms": lib_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": err,
+                "max_abs_vs_library": vs_lib,
+                "tflops": 4 * B * H * hd * kept_pairs(S, True, 0)
+                / (k_ms * 1e-3) / 1e12})
+            log(f"  flash {by_shape[-1]} [{card}]")
+            del q, k, v
+        # the counted runs of phase 9-10 were the warm-up of each call
+        pf = make_prefill_step(cfg)
+        pf_ms = cuda_time(lambda: pf(params, {"tokens": toks9}), 3,
+                          warm_up=False)
+        gen_ms = cuda_time(lambda: ServeEngine(
+            cfg, params, batch=8, max_len=256).generate(prompts10, 32), 3,
+            warm_up=False)
+        cb_ms = cuda_time(lambda: ContinuousBatchingEngine(
+            cfg, params, batch=8, max_len=512).run(requests10, 16), 3,
+            warm_up=False)
+        steps = 128 + 32 - 1           # decode steps of generate()
+        log(f"  prefill step smollm-135m B=4 S=4096 bf16: median "
+            f"{pf_ms:.3f} ms of 3 (first {1e3 * lm_out['prefill_s']:.3f} "
+            f"ms), peak device memory "
+            f"{lm_out['prefill_peak'] / 2**30:.3f} GiB [{card}]")
+        log(f"  ServeEngine.generate 8 x 159 decode steps: median "
+            f"{gen_ms:.3f} ms of 3 (first {1e3 * lm_out['generate_s']:.3f} "
+            f"ms), {8 * steps / (gen_ms / 1e3):.2f} decode tokens/s "
+            f"({8 * 32 / (gen_ms / 1e3):.2f} new tokens/s) [{card}]")
+        log(f"  continuous batching 12 requests: median {cb_ms:.3f} ms of 3 "
+            f"(first {1e3 * lm_out['cb_s']:.3f} ms), "
+            f"{12 * 16 / (cb_ms / 1e3):.2f} new tokens/s; peak device "
+            f"memory serving {lm_out['serve_peak'] / 2**30:.3f} GiB "
+            f"[{card}]")
+        for name, fn in (("prefill step", lambda: pf(
+                params, {"tokens": toks9})), ("5 decode steps", decode5)):
+            log(f"  device busy, {name}: {device_busy(fn)} [{card}]")
+        top = by_shape[0]
+        kernels.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:104",
+            "launches": lm_launches["flash_attention"],
+            "max_abs_err": max(flash_err.values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "shape": top["shape"],
+            "by_shape": by_shape, "prefill_logits_err": lm_err})
 
     if FAILURES:
         log(f"FAILED phases: {FAILURES}")

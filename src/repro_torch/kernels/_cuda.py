@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 # average).  32 keeps both small on the bundled designs' 450-8200 rounds.
 CHECK_CAP = 32
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -122,7 +122,10 @@ SPARSE = CudaLib("maxplus_sparse", {
 DENSE = CudaLib("maxplus_dense", {
     "maxplus_dense_sweep": [P, P, P, I, P, I, I, P, P],
 })
-LIBS: List[CudaLib] = [SPARSE, DENSE]
+FLASH = CudaLib("flash_attention", {
+    "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, F, I, P],
+})
+LIBS: List[CudaLib] = [SPARSE, DENSE, FLASH]
 
 
 def check_batches(limit: int) -> Iterator[int]:

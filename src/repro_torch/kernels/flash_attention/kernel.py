@@ -1,0 +1,79 @@
+"""Causal GQA flash attention in the head-major layout (the kernel).
+
+Replaces the reference's ``repro.kernels.flash_attention.kernel
+.flash_attention_bhsd`` (a Pallas call over ``_fa_kernel``).  One launch of
+the hand-written CUDA kernel (``csrc/flash_attention.cu``) computes, for
+every query row of every head, softmax attention over the keys that the
+causal and sliding-window masks keep, with an online softmax in f32: one
+block per (head, 64-row query tile) loops over its kept key tiles.  Query
+head ``bh`` reads K/V head ``bh // group_size`` in place.  Any S works
+(the ragged edge is masked); hd is 32, 64, 128 or 256; inputs are float32
+or bfloat16 and the output has the input dtype.
+
+Dispatch rule: a CUDA tensor launches the kernel (or the call raises); a
+CPU tensor runs the plain version (:func:`~.ref.attention_ref`).
+"""
+from __future__ import annotations
+
+import torch
+
+from .._cuda import FLASH, stream_of
+from .ref import attention_ref
+
+HEAD_DIMS = (32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           group_size: int) -> None:
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
+    if q.dim() != 3 or k.dim() != 3 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"q must be [BH, S, hd] and k, v [BHkv, S, hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    BH, S, hd = q.shape
+    if group_size < 1 or tuple(k.shape) != (BH // group_size, S, hd) \
+            or BH % group_size:
+        raise ValueError(f"k, v must be [{BH} / {group_size}, {S}, {hd}], "
+                         f"got {tuple(k.shape)}")
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0,
+                         group_size: int = 1) -> torch.Tensor:
+    """q: [BH, S, hd]; k, v: [BHkv, S, hd] with BH = BHkv * group_size.
+
+    Returns [BH, S, hd] in q's dtype.  ``window`` > 0 keeps keys with
+    ``k > q - window``; ``softcap`` > 0 applies ``softcap * tanh(s /
+    softcap)`` to the scaled scores before masking; fully masked rows
+    give 0.
+    """
+    _check(q, k, v, group_size)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap, group_size=group_size)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    BH, S, hd = q.shape
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the kernel takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes hd in {HEAD_DIMS}, got {hd}")
+    if BH > 65535:
+        raise ValueError(f"at most 65535 heads x batch per launch, got {BH}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    out = torch.empty_like(q)
+    if BH and S:
+        FLASH.call("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), BH, S, hd, group_size,
+                   int(bool(causal)), int(window), float(softcap),
+                   _DTYPES[q.dtype], stream_of(q))
+        FLASH.launches += 1
+    return out

@@ -1,0 +1,205 @@
+"""Language-model assembly, dense family.
+
+The port of the reference's ``repro.models.lm`` for ``family="dense"``:
+token embedding (times ``cfg.embed_scale``, gemma's ``sqrt(d_model)``),
+a plain loop over the blocks of an
+``nn.ModuleList`` (pre-norm GQA attention and gated MLP, gemma2's post
+norms), the final norm, the tied or separate head, the logit softcap and
+the masked vocab padding.  Per-layer sliding windows are Python ints.
+
+The reference's ``jax.lax.scan`` over stacked layers, its remat and its
+sharding constraints have no counterpart here: the port runs eagerly on
+one device.  Families other than dense raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from .attention import Attention, attention, decode_attention, init_kv_cache
+from .common import (dense_init, dtype_of, embed_init, mask_vocab_pad,
+                     padded_vocab, rms_norm, scalar_in, softcap, weight)
+from .mlp import MLP, mlp
+
+# where each family not ported yet stands in ROADMAP queue 1 item 10
+_NOT_PORTED = {
+    "moe": "moe (models/moe.py)",
+    "hybrid": "hybrid (models/ssm.py)",
+    "ssm": "ssm (models/xlstm.py, next: xlstm-1.3b with mlstm_chunk)",
+    "vlm": "vlm (models/frontends.py)",
+    "audio": "encdec (models/encdec.py)",
+    "encdec": "encdec (models/encdec.py)",
+}
+
+
+def check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        what = _NOT_PORTED.get(cfg.family, cfg.family)
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
+            f"has the dense family only (ROADMAP queue 1 item 10: {what})")
+
+
+class Block(nn.Module):
+    """One pre-norm block: attention and gated MLP, with gemma2's post
+    norms when ``cfg.post_norms``."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None):
+        super().__init__()
+        self.ln1 = weight((cfg.d_model,), device)
+        self.attn = Attention(cfg, device=device)
+        self.ln2 = weight((cfg.d_model,), device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device)
+        if cfg.post_norms:
+            self.pn1 = weight((cfg.d_model,), device)
+            self.pn2 = weight((cfg.d_model,), device)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> "Block":
+        for name in ("ln1", "ln2", "pn1", "pn2"):
+            if hasattr(self, name):
+                getattr(self, name).zero_()
+        self.attn.reset_parameters(gen)
+        self.mlp.reset_parameters(gen)
+        return self
+
+
+class LM(nn.Module):
+    """The parameters of a dense LM (f32, ``param_dtype``)."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None):
+        super().__init__()
+        check_family(cfg)
+        self.embed = weight((padded_vocab(cfg.vocab_size), cfg.d_model),
+                            device)
+        self.final_norm = weight((cfg.d_model,), device)
+        if not cfg.tie_embeddings:
+            self.lm_head = weight((cfg.d_model,
+                                   padded_vocab(cfg.vocab_size)), device)
+        self.layers = nn.ModuleList(Block(cfg, device=device)
+                                    for _ in range(cfg.num_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> "LM":
+        """The reference's initializers (uniform ``1/sqrt(fan_in)`` dense,
+        ``0.02`` normal embedding, zero norms and biases), drawn from
+        ``gen``."""
+        self.embed.copy_(embed_init(gen, *self.embed.shape))
+        self.final_norm.zero_()
+        if hasattr(self, "lm_head"):
+            self.lm_head.copy_(dense_init(gen, *self.lm_head.shape))
+        for blk in self.layers:
+            blk.reset_parameters(gen)
+        return self
+
+
+def layer_windows(cfg: ArchConfig) -> List[int]:
+    """Per-layer sliding-window sizes (0 = global causal)."""
+    L = cfg.num_layers
+    if cfg.local_global_pattern and cfg.sliding_window:
+        return [cfg.sliding_window if i % 2 == 0 else 0 for i in range(L)]
+    if cfg.sliding_window:
+        return [cfg.sliding_window] * L
+    return [0] * L
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> LM:
+    """Seeded weights (:meth:`LM.reset_parameters`) on ``device``."""
+    return LM(cfg, device=device).reset_parameters(gen)
+
+
+# -------------------------------------------------------------- block bodies
+def _block(p: Block, x: torch.Tensor, cfg: ArchConfig,
+           attend: Callable[[Attention, torch.Tensor], torch.Tensor]
+           ) -> torch.Tensor:
+    """One block; ``attend(p.attn, h)`` is full-sequence attention in the
+    forward and one-token attention over the cache in decode."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    a = attend(p.attn, h)
+    if cfg.post_norms:
+        a = rms_norm(a, p.pn1, cfg.norm_eps)
+    x = x + a
+    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    f = mlp(p.mlp, h)
+    if cfg.post_norms:
+        f = rms_norm(f, p.pn2, cfg.norm_eps)
+    return x + f
+
+
+def _embed(params: LM, tokens: torch.Tensor, cfg: ArchConfig
+           ) -> torch.Tensor:
+    cdt = dtype_of(cfg.dtype)
+    x = params.embed[tokens.long()].to(cdt)
+    if cfg.embed_scale != 1.0:
+        x = x * scalar_in(cfg.embed_scale, cdt)
+    return x
+
+
+# ------------------------------------------------------------------- forward
+@torch.no_grad()
+def hidden_forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
+                   frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens: [B, S] int.  Returns final hidden states [B, S, D] (after
+    the final norm).  ``frontend`` embeddings belong to the vlm family;
+    the dense family ignores them, as the reference does."""
+    x = _embed(params, tokens, cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    for blk, w in zip(params.layers, layer_windows(cfg)):
+        x = _block(blk, x, cfg, lambda pa, h: attention(
+            pa, h, cfg, positions, window=w))
+    return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def _head(params: LM, cfg: ArchConfig, dtype: torch.dtype) -> torch.Tensor:
+    return (params.embed.t() if cfg.tie_embeddings
+            else params.lm_head).to(dtype)
+
+
+def _logits(params: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    logits = x @ _head(params, cfg, x.dtype)
+    if cfg.logit_softcap > 0:
+        logits = softcap(logits.float(), cfg.logit_softcap)
+    return mask_vocab_pad(logits, cfg.vocab_size)
+
+
+@torch.no_grad()
+def forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
+            frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Returns logits [B, S, Vp] (f32 under a logit softcap, else the
+    compute dtype)."""
+    return _logits(params, hidden_forward(params, tokens, cfg, frontend), cfg)
+
+
+# --------------------------------------------------------------------- decode
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None
+               ) -> Dict[str, torch.Tensor]:
+    """Decode state: bf16 ``k``, ``v`` [L, B, max_len, Hkv, hd] and the
+    int32 per-sequence position ``pos`` [B]."""
+    check_family(cfg)
+    return init_kv_cache(cfg, batch, max_len, cfg.num_layers, device=device)
+
+
+@torch.no_grad()
+def decode_step(params: LM, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], cfg: ArchConfig):
+    """One decode step.  tokens: [B, 1] int.  Returns (logits [B, 1, Vp],
+    cache); the cache's K/V rows and ``pos`` are updated in place (the
+    reference donates its cache buffers), so the returned dict is the
+    one passed in."""
+    x = _embed(params, tokens, cfg)
+    pos = cache["pos"]
+    for i, (blk, w) in enumerate(zip(params.layers, layer_windows(cfg))):
+        x = _block(blk, x, cfg, lambda pa, h: decode_attention(
+            pa, h, cfg, cache["k"][i], cache["v"][i], pos, window=w)[0])
+    cache["pos"] = pos + 1
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return _logits(params, x, cfg), cache

@@ -129,3 +129,80 @@ def test_war_cycle_rows_are_cycles_on_the_card(dev):
                                fallback=False)
         assert out.status.tolist()[:2] == [tdse.CYCLE] * 2, lane
         assert (out.status[2:] == tdse.REUSED).all(), lane
+
+
+# ---------------------------------------------------------- flash attention
+def _flash_inputs(dev, dtype, B, S, H, Hkv, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B * h, S, hd))
+                             .astype(np.float32)).to(dev, dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("S,window,softcap,causal", [
+    (128, 0, 0.0, True),
+    (1000, 0, 0.0, True),        # ragged S
+    (333, 100, 50.0, True),      # window and softcap, ragged
+    (200, 0, 30.0, False),       # not causal
+    (257, 1, 0.0, True),         # window 1: only the diagonal is kept
+])
+def test_flash_kernel_matches_plain_version(dev, dtype, hd, S, window,
+                                            softcap, causal):
+    """bf16: the kernel and the plain version both accumulate in f32 and
+    round the output to bf16 once, so they differ by about one bf16 step
+    of the output (|o| <~ 3): 2e-2.  f32: summation order only: 2e-5."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+    tdt = getattr(torch, dtype)
+    q, k, v = _flash_inputs(dev, tdt, 2, S, 6, 2, hd, seed=S + hd)
+    before = _cuda.FLASH.launches
+    got = fk.flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, group_size=3)
+    torch.cuda.synchronize()
+    assert _cuda.FLASH.launches == before + 1
+    want = fr.attention_ref(q, k, v, causal=causal, window=window,
+                            softcap=softcap, group_size=3)
+    assert got.dtype == tdt and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    q, k, v = _flash_inputs(dev, torch.float32, 1, 64, 2, 1, 64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fk.flash_attention_bhsd(q.half(), k.half(), v.half(), group_size=2)
+    q48, k48, v48 = _flash_inputs(dev, torch.float32, 1, 64, 2, 1, 48)
+    with pytest.raises(ValueError, match="hd in"):
+        fk.flash_attention_bhsd(q48, k48, v48, group_size=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention_bhsd(q.transpose(1, 2).contiguous()
+                                .transpose(1, 2), k, v, group_size=2)
+    with pytest.raises(ValueError, match="is on"):
+        fk.flash_attention_bhsd(q, k.cpu(), v, group_size=2)
+    with pytest.raises(ValueError, match="must be"):
+        fk.flash_attention_bhsd(q, k, v, group_size=1)
+
+
+def test_prefill_step_launches_one_kernel_per_layer(dev):
+    """The smoke model's prefill on the card against the same model on the
+    CPU (plain version): f32, so the tolerance is the f32 summation
+    order's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.train.step import make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("gemma2-2b").smoke().replace(sliding_window=16,
+                                                local_global_pattern=True)
+    params = api.init_params(0, cfg, device=dev)
+    cpu_params = api.init_params(0, cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 77)))
+    before = _cuda.FLASH.launches
+    got = make_prefill_step(cfg)(params, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    assert _cuda.FLASH.launches - before == cfg.num_layers
+    want = make_prefill_step(cfg)(cpu_params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
