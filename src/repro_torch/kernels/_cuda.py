@@ -125,7 +125,10 @@ DENSE = CudaLib("maxplus_dense", {
 FLASH = CudaLib("flash_attention", {
     "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, F, I, P],
 })
-LIBS: List[CudaLib] = [SPARSE, DENSE, FLASH]
+MLSTM = CudaLib("mlstm_chunk", {
+    "mlstm_chunk_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+})
+LIBS: List[CudaLib] = [SPARSE, DENSE, FLASH, MLSTM]
 
 
 def check_batches(limit: int) -> Iterator[int]:

@@ -1,12 +1,14 @@
 """Serving launcher: batched generation with the decode engine.
 
-``python -m repro_torch.launch.serve --arch smollm-135m`` serves the model
-at its published widths with seeded random weights on the card (the port
-of the reference's ``repro.launch.serve``, with ``--device``): it
-prefills a batch of random prompts through the full-sequence prefill step
-(the flash-attention kernel on the card), then generates greedily with
-``ServeEngine`` and prints tokens per second.  ``--smoke`` takes the
-reduced config; ``--device cpu`` runs the kernels' plain versions.
+``python -m repro_torch.launch.serve --arch smollm-135m`` (or ``--arch
+xlstm-1.3b``) serves the model at its published widths with seeded random
+weights on the card (the port of the reference's ``repro.launch.serve``,
+with ``--device``): it prefills a batch of random prompts through the
+full-sequence prefill step (on the card, the flash-attention kernel or
+the chunked-mLSTM kernel), then generates greedily with
+``ServeEngine`` and prints tokens per second.  The weights are drawn from
+``--seed`` on the serving device.  ``--smoke`` takes the reduced config;
+``--device cpu`` runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -44,7 +46,10 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = cfg.smoke()
     device = resolve_device(args.device)
-    params = api.init_params(args.seed, cfg, device=device)
+    # drawn on the serving device: a CPU generator takes longer to draw
+    # xlstm-1.3b's 2.7e9 weights than the serving run itself (PERF.md)
+    params = api.init_params(torch.Generator(device=device)
+                             .manual_seed(args.seed), cfg, device=device)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len))
 

@@ -5,10 +5,11 @@
     init_cache(cfg, batch, max_len, ...)    -> decode cache
     decode_step(params, tokens, cache, cfg) -> (logits, cache)
 
-The port of the reference's ``repro.models.api`` for the dense family;
-``loss_fn`` belongs to the training slice.  ``key`` is an int seed or a
-``torch.Generator``.  ``device`` defaults to ``"cuda"`` and raises without
-a card; pass ``device="cpu"`` to run the kernels' plain versions.
+The port of the reference's ``repro.models.api`` for the dense and ssm
+(xlstm) families; ``loss_fn`` belongs to the training slice.  ``key`` is
+an int seed or a ``torch.Generator``.  ``device`` defaults to ``"cuda"``
+and raises without a card; pass ``device="cpu"`` to run the kernels'
+plain versions.
 """
 from __future__ import annotations
 
@@ -17,7 +18,6 @@ from typing import Union
 import torch
 
 from ..configs.base import ArchConfig
-from ..kernels._cuda import resolve_device
 from . import lm
 
 
@@ -29,7 +29,7 @@ def generator(key: Union[int, torch.Generator]) -> torch.Generator:
 
 
 def init_params(key, cfg: ArchConfig, *, device="cuda") -> lm.LM:
-    return lm.init_params(generator(key), cfg, device=resolve_device(device))
+    return lm.init_params(generator(key), cfg, device=device)
 
 
 def forward(params: lm.LM, tokens, cfg: ArchConfig, frontend=None):
@@ -37,7 +37,7 @@ def forward(params: lm.LM, tokens, cfg: ArchConfig, frontend=None):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
-    return lm.init_cache(cfg, batch, max_len, device=resolve_device(device))
+    return lm.init_cache(cfg, batch, max_len, device=device)
 
 
 def decode_step(params: lm.LM, tokens, cache, cfg: ArchConfig):

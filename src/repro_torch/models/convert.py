@@ -3,9 +3,11 @@
 ``params_from_jax`` takes the reference's parameter tree as nested dicts of
 numpy arrays (what ``jax.tree.map(np.asarray, params)`` gives; the caller
 makes it, the port never imports JAX) and fills the port's modules,
-unstacking the reference's ``[L, ...]`` layer stacks.  ``cache_from_jax``
-and ``cache_to_numpy`` carry the decode cache both ways, so a test can
-compare the two decode paths step by step.
+unstacking the reference's layer stacks: ``[L, ...]`` for the dense
+family; for ssm, ``mlstm`` leaves and ``ln_m`` ``[G, M, ...]``, ``slstm``
+leaves and ``ln_s`` ``[G, ...]``.  ``cache_from_jax`` and
+``cache_to_numpy`` carry the decode cache both ways, nested dicts
+included, so a test can compare the two decode paths step by step.
 """
 from __future__ import annotations
 
@@ -31,6 +33,16 @@ def to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _fill(module: torch.nn.Module, tree: Dict[str, Any], index) -> None:
+    """Each parameter of ``module``, named ``a.b``, from ``tree[a][b]`` at
+    ``index`` of its stacked leading axes."""
+    for name, param in module.named_parameters():
+        node = tree
+        for part in name.split("."):
+            node = node[part]
+        param.copy_(to_tensor(node[index]))
+
+
 @torch.no_grad()
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device="cuda"
                     ) -> LM:
@@ -40,24 +52,28 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device="cuda"
     p.final_norm.copy_(to_tensor(tree["final_norm"]))
     if not cfg.tie_embeddings:
         p.lm_head.copy_(to_tensor(tree["lm_head"]))
-    layers = tree["layers"]
+    if cfg.family == "ssm":
+        for g, grp in enumerate(p.groups):
+            for m, blk in enumerate(grp.mlstm):
+                _fill(blk, tree["mlstm"], (g, m))
+            grp.ln_m.copy_(to_tensor(tree["ln_m"][g]))
+            _fill(grp.slstm, tree["slstm"], g)
+            grp.ln_s.copy_(to_tensor(tree["ln_s"][g]))
+        return p
     for i, blk in enumerate(p.layers):
-        for name, param in blk.named_parameters():
-            node = layers
-            for part in name.split("."):
-                node = node[part]
-            param.copy_(to_tensor(node[i]))
+        _fill(blk, tree["layers"], i)
     return p
 
 
-def cache_from_jax(tree: Dict[str, np.ndarray], device="cuda"
-                   ) -> Dict[str, torch.Tensor]:
+def cache_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     device = resolve_device(device)
-    return {name: to_tensor(a, device) for name, a in tree.items()}
+    return {name: cache_from_jax(a, device) if isinstance(a, dict)
+            else to_tensor(a, device) for name, a in tree.items()}
 
 
-def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The cache as numpy arrays; bfloat16 K/V come out as float32
-    (exactly)."""
-    return {name: (t.float() if t.dtype == torch.bfloat16 else t)
+def cache_to_numpy(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The cache as numpy arrays, nested as it is; bfloat16 tensors (K/V,
+    conv windows) come out as float32 (exactly)."""
+    return {name: cache_to_numpy(t) if isinstance(t, dict)
+            else (t.float() if t.dtype == torch.bfloat16 else t)
             .cpu().numpy() for name, t in cache.items()}

@@ -1,4 +1,4 @@
-"""Language-model assembly, dense family.
+"""Language-model assembly, dense and ssm (xlstm) families.
 
 The port of the reference's ``repro.models.lm`` for ``family="dense"``:
 token embedding (times ``cfg.embed_scale``, gemma's ``sqrt(d_model)``),
@@ -7,28 +7,41 @@ a plain loop over the blocks of an
 norms), the final norm, the tied or separate head, the logit softcap and
 the masked vocab padding.  Per-layer sliding windows are Python ints.
 
+And for ``family="ssm"`` (xlstm): G = num_layers / slstm_every
+supergroups, each M = slstm_every - 1 pre-norm mLSTM blocks then one
+pre-norm sLSTM block, with no FFN (the reference's ``_xlstm_group``).  Its
+decode cache is nested, as the reference's: ``mlstm.{state, conv}``
+stacked [G, M, ...], ``slstm.{h, c, n}`` stacked [G, ...], and ``pos``;
+decode updates it in place.
+
 The reference's ``jax.lax.scan`` over stacked layers, its remat and its
 sharding constraints have no counterpart here: the port runs eagerly on
-one device.  Families other than dense raise ``NotImplementedError``.
+one device.  Families other than dense and ssm raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..kernels._cuda import resolve_device
 from .attention import Attention, attention, decode_attention, init_kv_cache
 from .common import (dense_init, dtype_of, embed_init, mask_vocab_pad,
                      padded_vocab, rms_norm, scalar_in, softcap, weight)
 from .mlp import MLP, mlp
+from .xlstm import (MLSTM, SLSTM, init_mlstm_cache, init_slstm_cache,
+                    mlstm_decode_step, mlstm_forward, slstm_decode_step,
+                    slstm_forward)
+
+PORTED = ("dense", "ssm")
 
 # where each family not ported yet stands in ROADMAP queue 1 item 10
 _NOT_PORTED = {
     "moe": "moe (models/moe.py)",
     "hybrid": "hybrid (models/ssm.py)",
-    "ssm": "ssm (models/xlstm.py, next: xlstm-1.3b with mlstm_chunk)",
     "vlm": "vlm (models/frontends.py)",
     "audio": "encdec (models/encdec.py)",
     "encdec": "encdec (models/encdec.py)",
@@ -36,11 +49,12 @@ _NOT_PORTED = {
 
 
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         what = _NOT_PORTED.get(cfg.family, cfg.family)
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"has the dense family only (ROADMAP queue 1 item 10: {what})")
+            f"has the dense and ssm families (ROADMAP queue 1 item 10: "
+            f"{what})")
 
 
 class Block(nn.Module):
@@ -67,8 +81,38 @@ class Block(nn.Module):
         return self
 
 
+def xlstm_groups(cfg: ArchConfig):
+    """(G supergroups, M mLSTM blocks in each) of an xlstm config."""
+    every = cfg.xlstm.slstm_every
+    return cfg.num_layers // every, every - 1
+
+
+class XLSTMGroup(nn.Module):
+    """One supergroup: M mLSTM blocks with their pre-norms ``ln_m`` [M, d],
+    then one sLSTM block with its pre-norm ``ln_s`` [d]."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None):
+        super().__init__()
+        _, M = xlstm_groups(cfg)
+        self.mlstm = nn.ModuleList(MLSTM(cfg, device=device)
+                                   for _ in range(M))
+        self.ln_m = weight((M, cfg.d_model), device)
+        self.slstm = SLSTM(cfg, device=device)
+        self.ln_s = weight((cfg.d_model,), device)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> "XLSTMGroup":
+        for blk in self.mlstm:
+            blk.reset_parameters(gen)
+        self.ln_m.zero_()
+        self.slstm.reset_parameters(gen)
+        self.ln_s.zero_()
+        return self
+
+
 class LM(nn.Module):
-    """The parameters of a dense LM (f32, ``param_dtype``)."""
+    """The parameters of an LM (f32, ``param_dtype``): ``layers`` for the
+    dense family, ``groups`` of :class:`XLSTMGroup` for ssm."""
 
     def __init__(self, cfg: ArchConfig, *, device=None):
         super().__init__()
@@ -79,8 +123,13 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = weight((cfg.d_model,
                                    padded_vocab(cfg.vocab_size)), device)
-        self.layers = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        if cfg.family == "ssm":
+            G, _ = xlstm_groups(cfg)
+            self.groups = nn.ModuleList(XLSTMGroup(cfg, device=device)
+                                        for _ in range(G))
+        else:
+            self.layers = nn.ModuleList(Block(cfg, device=device)
+                                        for _ in range(cfg.num_layers))
 
     @property
     def device(self) -> torch.device:
@@ -95,7 +144,7 @@ class LM(nn.Module):
         self.final_norm.zero_()
         if hasattr(self, "lm_head"):
             self.lm_head.copy_(dense_init(gen, *self.lm_head.shape))
-        for blk in self.layers:
+        for blk in (self.groups if hasattr(self, "groups") else self.layers):
             blk.reset_parameters(gen)
         return self
 
@@ -110,9 +159,12 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
     return [0] * L
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig, *, device=None) -> LM:
-    """Seeded weights (:meth:`LM.reset_parameters`) on ``device``."""
-    return LM(cfg, device=device).reset_parameters(gen)
+def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"
+                ) -> LM:
+    """Seeded weights (:meth:`LM.reset_parameters`) on ``device`` (default
+    ``"cuda"``, which raises without a card; pass ``"cpu"`` for the plain
+    versions of the kernels)."""
+    return LM(cfg, device=resolve_device(device)).reset_parameters(gen)
 
 
 # -------------------------------------------------------------- block bodies
@@ -133,6 +185,15 @@ def _block(p: Block, x: torch.Tensor, cfg: ArchConfig,
     return x + f
 
 
+def _xlstm_group(p: XLSTMGroup, x: torch.Tensor, cfg: ArchConfig
+                 ) -> torch.Tensor:
+    """One supergroup, full sequence: M mLSTM blocks then one sLSTM block,
+    each pre-norm with a residual."""
+    for blk, ln in zip(p.mlstm, p.ln_m):
+        x = x + mlstm_forward(blk, rms_norm(x, ln, cfg.norm_eps), cfg)
+    return x + slstm_forward(p.slstm, rms_norm(x, p.ln_s, cfg.norm_eps), cfg)
+
+
 def _embed(params: LM, tokens: torch.Tensor, cfg: ArchConfig
            ) -> torch.Tensor:
     cdt = dtype_of(cfg.dtype)
@@ -150,6 +211,10 @@ def hidden_forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
     the final norm).  ``frontend`` embeddings belong to the vlm family;
     the dense family ignores them, as the reference does."""
     x = _embed(params, tokens, cfg)
+    if cfg.family == "ssm":
+        for grp in params.groups:
+            x = _xlstm_group(grp, x, cfg)
+        return rms_norm(x, params.final_norm, cfg.norm_eps)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
@@ -180,26 +245,51 @@ def forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
 
 
 # --------------------------------------------------------------------- decode
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None
-               ) -> Dict[str, torch.Tensor]:
-    """Decode state: bf16 ``k``, ``v`` [L, B, max_len, Hkv, hd] and the
-    int32 per-sequence position ``pos`` [B]."""
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"
+               ) -> Dict[str, Any]:
+    """Decode state on ``device`` (default ``"cuda"``, as
+    :func:`init_params`).  Dense: bf16 ``k``, ``v`` [L, B, max_len, Hkv,
+    hd] and the int32 per-sequence position ``pos`` [B].  Ssm: the
+    recurrent states (``max_len`` unused) ``mlstm.state`` f32 [G, M, B, H,
+    P, P+1], ``mlstm.conv`` bf16 [G, M, B, K-1, d_inner], ``slstm.{h, c,
+    n}`` f32 [G, B, H, d/H], and ``pos``."""
     check_family(cfg)
+    device = resolve_device(device)
+    if cfg.family == "ssm":
+        G, M = xlstm_groups(cfg)
+        m = init_mlstm_cache(cfg, batch, G * M, device=device)
+        return {"mlstm": {name: a.reshape(G, M, *a.shape[1:])
+                          for name, a in m.items()},
+                "slstm": init_slstm_cache(cfg, batch, G, device=device),
+                "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
     return init_kv_cache(cfg, batch, max_len, cfg.num_layers, device=device)
 
 
 @torch.no_grad()
 def decode_step(params: LM, tokens: torch.Tensor,
-                cache: Dict[str, torch.Tensor], cfg: ArchConfig):
+                cache: Dict[str, Any], cfg: ArchConfig):
     """One decode step.  tokens: [B, 1] int.  Returns (logits [B, 1, Vp],
-    cache); the cache's K/V rows and ``pos`` are updated in place (the
-    reference donates its cache buffers), so the returned dict is the
-    one passed in."""
+    cache); the cache's K/V rows or recurrent states and ``pos`` are
+    updated in place (the reference donates its cache buffers), so the
+    returned dict is the one passed in."""
     x = _embed(params, tokens, cfg)
     pos = cache["pos"]
-    for i, (blk, w) in enumerate(zip(params.layers, layer_windows(cfg))):
-        x = _block(blk, x, cfg, lambda pa, h: decode_attention(
-            pa, h, cfg, cache["k"][i], cache["v"][i], pos, window=w)[0])
+    if cfg.family == "ssm":
+        mc, sc = cache["mlstm"], cache["slstm"]
+        for g, grp in enumerate(params.groups):
+            for m, (blk, ln) in enumerate(zip(grp.mlstm, grp.ln_m)):
+                y, _, _ = mlstm_decode_step(
+                    blk, rms_norm(x, ln, cfg.norm_eps), cfg,
+                    mc["state"][g, m], mc["conv"][g, m])
+                x = x + y
+            y, _, _, _ = slstm_decode_step(
+                grp.slstm, rms_norm(x, grp.ln_s, cfg.norm_eps), cfg,
+                sc["h"][g], sc["c"][g], sc["n"][g])
+            x = x + y
+    else:
+        for i, (blk, w) in enumerate(zip(params.layers, layer_windows(cfg))):
+            x = _block(blk, x, cfg, lambda pa, h: decode_attention(
+                pa, h, cfg, cache["k"][i], cache["v"][i], pos, window=w)[0])
     cache["pos"] = pos + 1
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, x, cfg), cache

@@ -8,6 +8,11 @@ step with the flash kernel is ``train.step.make_prefill_step``).
 decode steps; like the reference, ``admit`` feeds the new prompt through
 full-batch decode steps, so every active slot's position advances and
 takes a K/V row on each of them (ROADMAP queue 1 item 10 records it).
+For a recurrent (xlstm) cache ``admit`` likewise resets only ``pos``, so a
+request admitted into a freed slot starts from the recurrent state the
+previous request left there: the reference does the same, and the port
+keeps it as the spec (ROADMAP queue 1 item 10, faults of the reference).
+The decode step updates the cache, K/V or recurrent state, in place.
 
 The engine runs on the parameters' device; tokens cross to the host once
 per step, for the argmax's bookkeeping.

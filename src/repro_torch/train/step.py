@@ -2,8 +2,9 @@
 ``repro.train.step.make_prefill_step`` / ``make_decode_step``.
 
 ``make_prefill_step`` runs the whole prompt through the full-sequence
-forward (flash attention: the CUDA kernel on the card) and returns the last
-position's logits; ``make_decode_step`` takes one greedy token.  The
+forward (on the card: the flash-attention kernel for the dense family,
+the chunked-mLSTM kernel once per mLSTM block for xlstm) and returns the
+last position's logits; ``make_decode_step`` takes one greedy token.  The
 training step (``make_train_step``, AdamW, schedules) belongs to a later
 slice.
 """

@@ -206,3 +206,96 @@ def test_prefill_step_launches_one_kernel_per_layer(dev):
     assert _cuda.FLASH.launches - before == cfg.num_layers
     want = make_prefill_step(cfg)(cpu_params, {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------- mlstm chunk
+def _mlstm_inputs(dev, BH, S, P, Pv, seed=0):
+    """q scaled by 1/sqrt(P) as the model scales it; ig a sigmoid, la a
+    log-sigmoid (<= 0)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((BH, S, P)) / np.sqrt(P)
+    k = rng.standard_normal((BH, S, P))
+    v = rng.standard_normal((BH, S, Pv))
+    ig = 1 / (1 + np.exp(-rng.standard_normal((BH, S))))
+    la = -np.logaddexp(0, -(rng.standard_normal((BH, S)) + 1.0))
+    return [torch.from_numpy(x.astype(np.float32)).to(dev)
+            for x in (q, k, v, ig, la)]
+
+
+@pytest.mark.parametrize("BH,S,P,Pv,chunk", [
+    (6, 128, 64, 65, 32),         # the reference test's odd widths
+    (6, 256, 32, 32, 64),
+    (2, 256, 32, 33, 256),        # one chunk, two 128-row passes
+    (2, 16, 64, 65, 16),          # S = chunk
+    (3, 24, 20, 7, 12),           # ragged tiles everywhere
+    (1, 300, 40, 70, 150),
+    (2, 512, 1024, 1025, 256),    # xlstm-1.3b's widths and chunk
+])
+def test_mlstm_kernel_matches_plain_version(dev, BH, S, P, Pv, chunk):
+    """f32 throughout; the chunked kernel and the direct O(S^2) plain
+    version sum in another order: the reference's 2e-4 (relative to the
+    readout's scale, |y| up to ~20 at P 1024)."""
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.kernels.mlstm_chunk import ref as mr
+    xs = _mlstm_inputs(dev, BH, S, P, Pv, seed=S + P)
+    before = _cuda.MLSTM.launches
+    got = mk.mlstm_chunk_bhsd(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _cuda.MLSTM.launches == before + 1
+    want = mr.mlstm_ref(*xs)
+    assert got.dtype == torch.float32 and got.shape == (BH, S, Pv)
+    scale = max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * scale)
+
+
+def test_mlstm_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    q, k, v, ig, la = _mlstm_inputs(dev, 2, 64, 32, 33)
+    with pytest.raises(ValueError, match="float32"):
+        mk.mlstm_chunk_bhsd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                            ig, la, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.mlstm_chunk_bhsd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v, ig, la, chunk=32)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        mk.mlstm_chunk_bhsd(q, k, v, ig, la, chunk=48)
+    with pytest.raises(ValueError, match="is on"):
+        mk.mlstm_chunk_bhsd(q, k.cpu(), v, ig, la, chunk=32)
+    # the CUDA routine's own checks: P 2048's state tile does not fit one
+    # block's shared memory; 65 536 chunks exceed the score grid's z limit
+    big = _mlstm_inputs(dev, 1, 256, 2048, 8)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mk.mlstm_chunk_bhsd(*big, chunk=256)
+    many = _mlstm_inputs(dev, 1, 65536, 8, 8)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mk.mlstm_chunk_bhsd(*many, chunk=1)
+
+
+def test_xlstm_prefill_launches_one_kernel_per_mlstm_block(dev):
+    """A smoke xlstm (two supergroups of two mLSTM blocks) on the card
+    against the same model on the CPU (plain version): f32, so the
+    tolerance is the f32 summation order's; and ServeEngine's tokens on
+    the card equal the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.step import make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("xlstm-1.3b").smoke()
+    cfg = cfg.replace(num_layers=6, xlstm=dataclasses.replace(
+        cfg.xlstm, slstm_every=3))
+    params = api.init_params(0, cfg, device=dev)
+    cpu_params = api.init_params(0, cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    before = _cuda.MLSTM.launches
+    got = make_prefill_step(cfg)(params, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    assert _cuda.MLSTM.launches - before == 4
+    want = make_prefill_step(cfg)(cpu_params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    prompts = toks[:, :5].numpy()
+    assert np.array_equal(ServeEngine(cfg, params, 2, 16).generate(prompts, 4),
+                          ServeEngine(cfg, cpu_params, 2, 16).generate(
+                              prompts, 4))

@@ -316,7 +316,7 @@ def test_continuous_batching_reuses_slots():
 
 # -------------------------------------------------------- what is not ported
 @pytest.mark.parametrize("name", sorted(n for n, c in ARCHS.items()
-                                        if c.family != "dense"))
+                                        if c.family not in lm.PORTED))
 def test_families_not_ported_raise(name):
     cfg = get_arch(name).smoke()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
