@@ -10,7 +10,7 @@ Phases, each printing its own line:
 
   1. environment: Python, torch and CUDA versions, the card's name and
      power limit (``nvidia-smi``), and the timed ``nvcc`` build of the
-     three hand-written kernels from ``src/repro_torch/csrc`` (one
+     four hand-written kernel sources from ``src/repro_torch/csrc`` (one
      ``nvcc`` per source, started together);
   2. the two max-plus kernels against their plain PyTorch versions on the
      card, on seeded synthetic inputs (kernel 1: random chains and edges
@@ -32,15 +32,19 @@ Phases, each printing its own line:
      ``backend="numpy"`` (a prefix of rows);
   7. timings: the wall time of each main-path call (median of 3 after
      the counted run), each kernel's time beside its plain version's and
-     its memory bound, and peak device memory.  The bound counts the
-     rounds (sweeps) the fixpoint needs, up to and including the first
-     that changes nothing; the loop launches more, because the host reads
-     the flag only every few rounds, and those are reported apart;
+     its memory bound (for the sparse kernel also per round: the time
+     over the rounds launched beside the bound over the rounds needed),
+     the device's busy share over one ``matmul_stream`` solve, and peak
+     device memory.  The bound counts the rounds (sweeps) the fixpoint
+     needs, up to and including the first that changes nothing; the loop
+     launches more, because the host reads the flag only every few
+     rounds, and those are reported apart;
   8. the flash-attention kernel against its plain version on the card, on
      seeded inputs: (a) smollm-135m's attention, B 4, S 4096, 9 heads over
      3, hd 64, bf16, causal; (b) gemma2-2b's, B 1, S 8192, 8 heads over 4,
      hd 256, bf16, window 4096, softcap 50; (c) f32, ragged S = 1000,
-     hd 32;
+     hd 32.  (a) and (b) must take the tensor-core route, (c) the f32
+     FMA route (the wrapper's per-route launch counters);
   9-10. the LM serving path on smollm-135m at its published widths (30
      layers, d_model 576) with seeded random weights, through the entry
      points a user calls: the prefill step (``make_prefill_step``, B 4,
@@ -48,7 +52,8 @@ Phases, each printing its own line:
      new tokens) and ``ContinuousBatchingEngine.run`` (12 requests of 8
      tokens over 8 slots, 8 new tokens each).  Launch counts are zeroed
      just before and read just after these three calls: the flash kernel
-     must have run once per layer (30), in the prefill.  Then:
+     must have run once per layer (30), in the prefill, all on the
+     tensor-core route.  Then:
        9. the prefill's last-position logits against the same step under
           ``plain_kernels()``, in bf16 and in float32 compute;
       10. the engines' outputs (shapes, lengths, all requests done), and
@@ -58,7 +63,8 @@ Phases, each printing its own line:
      prefill_32k length (B 1, S 32 768), beside its plain version (at (a)
      only: its [BH, S, S] scores do not fit at 32k), one PyTorch call that
      computes the same function (``scaled_dot_product_attention`` with
-     ``enable_gqa``: the yardstick, used nowhere in the port) and its bound;
+     ``enable_gqa``: the yardstick, used nowhere in the port), its bound,
+     its TFLOP/s and the route it took;
      the prefill step's wall time, decode tokens per second, and peak
      device memory;
   12. the chunked-mLSTM kernel against its plain version on the card, on
@@ -150,8 +156,9 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def synthetic_chain_graph(rng, chains=16, fifos=6):
-    """Seeded random chain graph in the shape the simulator exports: every
+def synthetic_chain_graph(rng, chains=16, fifos=6, lens=(50, 400)):
+    """Seeded random chain graph in the shape the simulator exports: chains
+    of ``lens[0] <= length < lens[1]`` nodes, every
     node gets a recorded commit time (increasing along its chain); FIFO
     writes and reads pair up in time order between two chains (RAW edge
     write -> read), and extra RAW edges run forward in time, so the graph
@@ -159,7 +166,7 @@ def synthetic_chain_graph(rng, chains=16, fifos=6):
     -> write ``w``) may run against the recorded times, so small depths
     can form cycles, as in real designs.  Returns ``(n, args)`` for
     ``export_chain_flat(*args, neg=...)``."""
-    lens = rng.integers(50, 400, size=chains)
+    lens = rng.integers(*lens, size=chains)
     slices, off = [], 0
     for ln in lens:
         slices.append((off, off + int(ln)))
@@ -286,6 +293,40 @@ def main():
             ms.append(a.elapsed_time(b))
         return statistics.median(ms)
 
+    def device_busy(fn):
+        """Kernel time of one fn() under torch.profiler (device clock; one
+        stream, so kernels do not overlap) over the median time of fn()
+        unprofiled on CUDA events, after a warm-up: the profiler's host
+        overhead stretches the profiled run, not the unprofiled one."""
+        from torch.profiler import ProfilerActivity, profile
+        wall_ms = cuda_time(fn, 3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        # the raw device events: building the profiler's event tree takes
+        # ~60 us an event on the host, minutes for a 175 000-kernel prefill
+        cuda = torch.autograd.DeviceType.CUDA
+        dev = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda and not e.is_user_annotation()]
+        if not dev:
+            return f"not measured (the profiler saw no device events; " \
+                   f"unprofiled {wall_ms:.2f} ms)"
+        busy_ms = sum(e.duration_ns() for e in dev) / 1e6
+        by_name = {}
+        for e in dev:
+            # "void (anonymous namespace)::kernel<4>(int*, ...)" -> kernel
+            name = e.name().replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0]
+            name = name.removeprefix("void ").strip()[-48:]
+            ms, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + e.duration_ns() / 1e6, n + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
+        return (f"{busy_ms:.2f} ms of kernels in {wall_ms:.2f} ms "
+                f"unprofiled (median of 3; {100 * busy_ms / wall_ms:.1f} % "
+                f"busy), {len(dev)} kernels; most time: " + ", ".join(
+                    f"{name} {ms:.2f} ms ({n})" for name, (ms, n) in top))
+
     def same_solve(kern, plain):
         """Kernel and plain (times, converged) agree bit for bit: the
         converged mask, and the times of converged rows.  Returns the max
@@ -363,7 +404,7 @@ def main():
     # ------------------------------------------------ main path (3 - 6)
     designs = {}
     for lib in _cuda.LIBS:
-        lib.launches = 0
+        lib.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     with phase("main path: simulate + compile"):
         for key, build in (("skynet", skynet_like),
@@ -561,13 +602,21 @@ def main():
                   f"kernel launched {launched} rounds, plain needed {rounds}")
             E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
             bytes_ = 4 * K * (2 * g.n + 2 * (E + m)) * rounds
+            bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
             by_shape.append({
-                "shape": f"{K_label} (n={g.n}, E={E}, m={m}, K={K})",
+                "shape": f"{K_label} (n={g.n}, E={E}, m={m}, K={K}, "
+                         f"{arr.seg_lo.shape[0]} segments of <= "
+                         f"{int((arr.seg_hi - arr.seg_lo).max())} nodes)",
                 "rounds": rounds, "launched": launched, "ms": k_ms,
-                "plain_ms": p_ms,
-                "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": p_ms, "bound_ms": bound_ms,
+                "us_per_round": 1e3 * k_ms / launched,
+                "bound_us_per_round": 1e3 * bound_ms / rounds,
                 "max_abs_err": err})
             log(f"  kernel 1 {by_shape[-1]} [{card}]")
+            if key == "matmul":
+                log(f"  device busy, one matmul_stream solve: "
+                    f"{device_busy(lambda: sparse.solve_chains(arr, Dt))} "
+                    f"[{card}]")
         top = by_shape[0]
         kernels.append({
             "name": "maxplus_sparse_fixpoint", "route": "cuda",
@@ -578,6 +627,9 @@ def main():
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": top["shape"],
+            "design": "segmented chain pass: (segment, 4 configs) threads "
+                      "in two launches, then an (edge, 4 configs) cross "
+                      "pass; int4 loads",
             "rounds": top["rounds"], "launched": top["launched"],
             "by_shape": by_shape})
 
@@ -636,6 +688,7 @@ def main():
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": top["shape"],
+            "design": "one warp per output row, t staged in shared memory",
             "sweeps": top["sweeps"], "launched": top["launched"],
             "by_shape": by_shape})
 
@@ -664,10 +717,15 @@ def main():
                 "operations" if t_ops >= t_bytes else "bytes")
 
     # (name, B, S, H, Hkv, hd, dtype, window, softcap, rtol, atol)
-    # bf16: kernel and plain version both sum in f32 and round the output
-    # to bf16 once; their f32 sums differ by ~1e-6, so an output may round
-    # to the neighbouring bf16 value: one bf16 step, 2^-7 relative.
-    # f32: the two sum in another order: 2e-5.
+    # bf16 (the tensor-core route): the kernel rounds P to bf16 before P.V,
+    # which perturbs each weight by at most 2^-9 relative and moves a row
+    # over n keys by ~2^-9 / sqrt(n / e) of its v rows' spread: ~3e-5 at
+    # 4 096 keys, ~1e-4 at 256.  Below 256 keys a row, and on the tiles
+    # that cross a mask bound, it splits P into bf16 high and low parts
+    # (~2^-17).  Kernel and plain version both round the f32 result to
+    # bf16 once, so an output may land on the neighbouring bf16 value: one
+    # bf16 step, 2^-7 relative, or 1e-3 absolute near 0.
+    # f32 (the FMA route): the two sum in another order: 2e-5.
     shapes8 = [
         ("a smollm-135m", 4, 4096, 9, 3, 64, torch.bfloat16, 0, 0.0,
          2.0 ** -7, 1e-3),
@@ -680,9 +738,16 @@ def main():
     with phase("8 flash kernel vs plain version (seeded inputs)"):
         for name, B, S, H, Hkv, hd, dt, w, cap, rtol, atol in shapes8:
             q, k, v = attn_inputs(B, S, H, Hkv, hd, dt)
+            route = ("tensor_core_bf16" if dt == torch.bfloat16
+                     else "fma_f32")
+            before = dict(_cuda.FLASH.route_launches)
             got = fa_kernel.flash_attention_bhsd(
                 q, k, v, window=w, softcap=cap, group_size=H // Hkv)
             sync()
+            check(_cuda.FLASH.route_launches == {
+                r: n + (r == route) for r, n in before.items()},
+                f"({name}) did not take the {route} route: "
+                f"{before} -> {_cuda.FLASH.route_launches}")
             want = fa_ref.attention_ref(q, k, v, window=w, softcap=cap,
                                         group_size=H // Hkv)
             err = (got.float() - want.float()).abs().max().item()
@@ -690,8 +755,8 @@ def main():
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                        atol=atol)
             log(f"  ({name}) B={B} S={S} H={H}/{Hkv} hd={hd} {dt} "
-                f"window={w} softcap={cap}: max abs err {err:.3g} "
-                f"(rtol {rtol:.3g}, atol {atol:.3g})")
+                f"window={w} softcap={cap}, {route} route: max abs err "
+                f"{err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
             del q, k, v, got, want
 
     # ------------------------------------------- LM main path (9 - 10)
@@ -712,7 +777,7 @@ def main():
         prefill = make_prefill_step(cfg)
         sync()
         for lib in _cuda.LIBS:
-            lib.launches = 0
+            lib.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         lm_out["prefill"] = prefill(params, {"tokens": toks9})
@@ -733,16 +798,22 @@ def main():
         lm_out["cb_s"] = time.perf_counter() - t0
         lm_out["serve_peak"] = torch.cuda.max_memory_allocated()
         lm_launches = {lib.name: lib.launches for lib in _cuda.LIBS}
+        lm_routes = dict(_cuda.FLASH.route_launches)
         log(f"  prefill B=4 S=4096: {lm_out['prefill_s']:.3f} s (first "
             f"call); generate 8x({PROMPT10}+{GEN10}): "
             f"{lm_out['generate_s']:.3f} s; continuous batching "
             f"12x({REQ10}+{REQ_GEN10}) over 8 slots: "
             f"{lm_out['cb_s']:.3f} s")
-        log(f"launches on the LM path: {lm_launches}")
+        log(f"launches on the LM path: {lm_launches}; flash routes "
+            f"{lm_routes}")
         check(lm_launches["flash_attention"] == cfg.num_layers,
               f"flash kernel launched {lm_launches['flash_attention']} "
               f"times in one prefill, not once per layer "
               f"({cfg.num_layers})")
+        check(lm_routes["tensor_core_bf16"] == cfg.num_layers,
+              f"the bf16 prefill took the tensor-core route "
+              f"{lm_routes['tensor_core_bf16']} times, not "
+              f"{cfg.num_layers}")
 
     lm_err = {}
     if "prefill" in lm_out:
@@ -815,30 +886,6 @@ def main():
             q.view(B, H, S, hd), k.view(B, Hkv, S, hd),
             v.view(B, Hkv, S, hd), is_causal=True, enable_gqa=True)
 
-    def device_busy(fn):
-        """Kernel time of one fn() under torch.profiler (device clock; one
-        stream, so kernels do not overlap) over the median time of fn()
-        unprofiled on CUDA events, after a warm-up: the profiler's host
-        overhead stretches the profiled run, not the unprofiled one."""
-        from torch.profiler import ProfilerActivity, profile
-        wall_ms = cuda_time(fn, 3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            sync()
-        # the raw device events: building the profiler's event tree takes
-        # ~60 us an event on the host, minutes for a 175 000-kernel prefill
-        cuda = torch.autograd.DeviceType.CUDA
-        dev = [e for e in prof.profiler.kineto_results.events()
-               if e.device_type() == cuda and not e.is_user_annotation()]
-        if not dev:
-            return f"not measured (the profiler saw no device events; " \
-                   f"unprofiled {wall_ms:.2f} ms)"
-        busy_ms = sum(e.duration_ns() for e in dev) / 1e6
-        return (f"{busy_ms:.2f} ms of kernels in {wall_ms:.2f} ms "
-                f"unprofiled (median of 3; {100 * busy_ms / wall_ms:.1f} % "
-                f"busy), {len(dev)} kernels")
-
     def decode5():
         """Five decode steps of 8 sequences, as ServeEngine runs them."""
         cache = api.init_cache(cfg, 8, 256, device=dev)
@@ -866,7 +913,8 @@ def main():
             bound_ms, bound_by = attn_bound(B, S, H, Hkv, hd, dt)
             by_shape.append({
                 "shape": f"{label}: B={B} S={S} H={H}/{Hkv} hd={hd} bf16 "
-                         f"causal", "ms": k_ms, "plain_ms": p_ms,
+                         f"causal", "route": "tensor_core_bf16",
+                "ms": k_ms, "plain_ms": p_ms,
                 "library_ms": lib_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": err,
                 "max_abs_vs_library": vs_lib,
@@ -911,6 +959,9 @@ def main():
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "shape": top["shape"],
+            "design": "tensor-core mma.sync bf16 (FA2 schedule, cp.async "
+                      "double buffer); f32 inputs: f32 FMA",
+            "routes": lm_routes,
             "by_shape": by_shape, "prefill_logits_err": lm_err})
 
     # --------------------------------------------------------------- 12
@@ -999,7 +1050,7 @@ def main():
         xprefill = make_prefill_step(xcfg)
         sync()
         for lib in _cuda.LIBS:
-            lib.launches = 0
+            lib.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         x_out["prefill"] = xprefill(xparams, {"tokens": toks13})
@@ -1188,6 +1239,8 @@ def main():
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "shape": top["shape"],
+            "design": "f32 FMA from shared memory, state tile per (head, "
+                      "32 columns)",
             "by_shape": by_shape, "prefill_logits_err": x_err})
 
     if FAILURES:

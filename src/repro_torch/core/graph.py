@@ -303,7 +303,9 @@ class ChainFlatArrays(NamedTuple):
     node axis is not rounded up to 128 lanes and the edge and WAR tables
     are not bucketed to powers of two (a CUDA kernel takes its sizes at
     run time), so every entry is real and every destination column is
-    unique.
+    unique.  The segment table (``seg_*``, :func:`segment_table`) cuts
+    every chain into runs of at most :func:`segment_length` nodes, the
+    unit of parallel work of the kernel's chain pass.
 
     The WAR tables are the *config-independent* half of WAR regeneration:
     one row per blocking write of every FIFO that has at least one read
@@ -328,6 +330,42 @@ class ChainFlatArrays(NamedTuple):
     war_roff: np.ndarray      # (m,) offset of that FIFO's reads in war_rcols
     war_rcols: np.ndarray     # (R,) concatenated read columns, FIFO-major
     bound: int                # upper bound on any acyclic path length
+    seg_lo: np.ndarray        # (G,) first column of each chain segment
+    seg_hi: np.ndarray        # (G,) one past its last column
+    seg_first: np.ndarray     # (G,) index of its chain's first segment
+
+
+def segment_length(chain_lens) -> int:
+    """Nodes per segment of the sparse kernel's chain pass.
+
+    The kernel runs one thread per (segment, config): a thread reads the
+    maxima of the earlier segments of its chain (about ``len / (2 L)``
+    words) and then walks its own ``L`` nodes, so ``L = sqrt(len / 2)``
+    of the longest chain minimises the longest thread's work; rounded to
+    a multiple of 8 (the walk's unroll), at least 16.
+    """
+    longest = int(np.max(chain_lens)) if len(chain_lens) else 0
+    return max(16, 8 * int(round(np.sqrt(longest / 2) / 8)))
+
+
+def segment_table(chain_lo, chain_hi, seg_len: int):
+    """Cut every chain ``chain_lo[c] .. chain_hi[c]`` into segments of at
+    most ``seg_len`` nodes, in chain order.  Returns int32 arrays
+    ``(seg_lo, seg_hi, seg_first)``: each segment's column range and the
+    index of the first segment of its chain.  Every column of every chain
+    lies in exactly one segment, and no segment crosses a chain boundary;
+    an empty chain has no segment."""
+    lo = np.asarray(chain_lo, np.int64)
+    hi = np.asarray(chain_hi, np.int64)
+    if seg_len < 1:
+        raise ValueError(f"seg_len must be positive, got {seg_len}")
+    count = (hi - lo + seg_len - 1) // seg_len
+    first = np.cumsum(count) - count
+    chain = np.repeat(np.arange(len(lo)), count)
+    seg_lo = lo[chain] + (np.arange(len(chain)) - first[chain]) * seg_len
+    seg_hi = np.minimum(seg_lo + seg_len, hi[chain])
+    return tuple(np.ascontiguousarray(a, dtype=np.int32)
+                 for a in (seg_lo, seg_hi, first[chain]))
 
 
 def export_chain_flat(chain_slices, cw, c_seed, raw_dst, raw_src, raw_w,
@@ -358,15 +396,19 @@ def export_chain_flat(chain_slices, cw, c_seed, raw_dst, raw_src, raw_w,
     def cat(parts):
         return i32(np.concatenate(parts)) if parts else np.zeros(0, np.int32)
 
+    chain_lo = i32([lo for (lo, _) in chain_slices])
+    chain_hi = i32([hi for (_, hi) in chain_slices])
+    seg_lo, seg_hi, seg_first = segment_table(
+        chain_lo, chain_hi, segment_length(chain_hi - chain_lo))
     return ChainFlatArrays(
         n=n, cw=i32(np.minimum(cw, np.iinfo(np.int32).max)),
-        chain_lo=i32([lo for (lo, _) in chain_slices]),
-        chain_hi=i32([hi for (_, hi) in chain_slices]),
+        chain_lo=chain_lo, chain_hi=chain_hi,
         c_seed=i32(np.maximum(c_seed, neg)),
         raw_dst=i32(raw_dst), raw_src=i32(raw_src),
         raw_w=i32(np.maximum(raw_w, neg)),
         war_dst=cat(wd), war_wseq=cat(ws), war_fid=cat(wf), war_nr=cat(wnr),
-        war_roff=cat(wro), war_rcols=cat(rc), bound=int(bound))
+        war_roff=cat(wro), war_rcols=cat(rc), bound=int(bound),
+        seg_lo=seg_lo, seg_hi=seg_hi, seg_first=seg_first)
 
 
 def to_dense_blocks(indptr: np.ndarray, src: np.ndarray, wgt: np.ndarray,

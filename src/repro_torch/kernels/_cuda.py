@@ -54,19 +54,28 @@ def _nvcc() -> str:
 
 
 class CudaLib:
-    """One kernel source, its shared library and its launch counter.
+    """One kernel source, its shared library and its launch counters.
 
     ``launches`` is a plain integer that the kernel's Python wrapper
     raises by one each time it launches the kernel, and nowhere else.
+    A source with more than one kernel route also counts each launch
+    under its route's name in ``route_launches``.
     """
 
-    def __init__(self, name: str, signatures: Dict[str, Sequence]):
+    def __init__(self, name: str, signatures: Dict[str, Sequence],
+                 routes: Sequence[str] = ()):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.signatures = signatures
         self.launches = 0
+        self.route_launches = dict.fromkeys(routes, 0)
         self._lib = None
         self._lock = threading.Lock()
+
+    def reset_counts(self) -> None:
+        """Set every launch counter to 0."""
+        self.launches = 0
+        self.route_launches = dict.fromkeys(self.route_launches, 0)
 
     # -- build -----------------------------------------------------------
     def target(self) -> Path:
@@ -116,15 +125,15 @@ class CudaLib:
 
 
 SPARSE = CudaLib("maxplus_sparse", {
-    "maxplus_sparse_round": [P, P, P, P, P, I, P, P, P, I, P, P, P, P, P, P,
-                             I, P, I, I, P, P, P, P],
+    "maxplus_sparse_round": [P, P, P, P, P, P, I, P, P, P, P, I, P, P, P, P,
+                             P, P, I, P, I, I, P, P, P, P],
 })
 DENSE = CudaLib("maxplus_dense", {
     "maxplus_dense_sweep": [P, P, P, I, P, I, I, P, P],
 })
 FLASH = CudaLib("flash_attention", {
     "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, F, I, P],
-})
+}, routes=("tensor_core_bf16", "fma_f32"))
 MLSTM = CudaLib("mlstm_chunk", {
     "mlstm_chunk_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
 })

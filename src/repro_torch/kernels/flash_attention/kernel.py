@@ -2,13 +2,19 @@
 
 Replaces the reference's ``repro.kernels.flash_attention.kernel
 .flash_attention_bhsd`` (a Pallas call over ``_fa_kernel``).  One launch of
-the hand-written CUDA kernel (``csrc/flash_attention.cu``) computes, for
+a hand-written CUDA kernel (``csrc/flash_attention.cu``) computes, for
 every query row of every head, softmax attention over the keys that the
 causal and sliding-window masks keep, with an online softmax in f32: one
 block per (head, 64-row query tile) loops over its kept key tiles.  Query
 head ``bh`` reads K/V head ``bh // group_size`` in place.  Any S works
 (the ragged edge is masked); hd is 32, 64, 128 or 256; inputs are float32
 or bfloat16 and the output has the input dtype.
+
+The dtype picks the route, and each launch is counted in
+``FLASH.launches`` and under its route in ``FLASH.route_launches``:
+bfloat16 runs both products on the tensor cores (``"tensor_core_bf16"``:
+``mma.sync`` with bf16 operands and f32 accumulation, P rounded to bf16);
+float32 runs them in exact f32 FMA (``"fma_f32"``).
 
 Dispatch rule: a CUDA tensor launches the kernel (or the call raises); a
 CPU tensor runs the plain version (:func:`~.ref.attention_ref`).
@@ -21,7 +27,9 @@ from .._cuda import FLASH, stream_of
 from .ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (code of the C interface, route)
+_DTYPES = {torch.float32: (0, "fma_f32"),
+           torch.bfloat16: (1, "tensor_core_bf16")}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,11 +77,15 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"at most 65535 heads x batch per launch, got {BH}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary")
     out = torch.empty_like(q)
     if BH and S:
+        code, route = _DTYPES[q.dtype]
         FLASH.call("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), out.data_ptr(), BH, S, hd, group_size,
-                   int(bool(causal)), int(window), float(softcap),
-                   _DTYPES[q.dtype], stream_of(q))
+                   int(bool(causal)), int(window), float(softcap), code,
+                   stream_of(q))
         FLASH.launches += 1
+        FLASH.route_launches[route] += 1
     return out

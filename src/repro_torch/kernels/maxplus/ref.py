@@ -27,6 +27,25 @@ def segmented_cummax_ref(x: torch.Tensor, chain_lo, chain_hi) -> torch.Tensor:
     return out
 
 
+def segment_cummax_ref(x: torch.Tensor, seg_lo, seg_hi,
+                       seg_first) -> torch.Tensor:
+    """:func:`segmented_cummax_ref` as the kernel's chain pass computes it,
+    over a segment table (``core.graph.segment_table``): each segment's max
+    of ``x`` (pass 1), then each segment's walk from the max of the earlier
+    segments of its chain (pass 2).  Equal to :func:`segmented_cummax_ref`
+    over the chains the table cuts."""
+    out = torch.empty_like(x)
+    bounds = list(zip(seg_lo.tolist(), seg_hi.tolist()))
+    if not bounds:
+        return out
+    segmax = torch.stack([x[lo:hi].amax(dim=0) for lo, hi in bounds])
+    floor = torch.full_like(x[0], torch.iinfo(x.dtype).min)
+    for s, ((lo, hi), first) in enumerate(zip(bounds, seg_first.tolist())):
+        carry = segmax[first:s].amax(dim=0) if s > first else floor
+        out[lo:hi] = torch.cummax(x[lo:hi], dim=0).values.maximum(carry)
+    return out
+
+
 def solve_chains_ref(arr, depth: torch.Tensor):
     """The sparse fixpoint in torch ops: the Jacobi rounds of the
     reference's ``sparse._fixpoint``, node-major.

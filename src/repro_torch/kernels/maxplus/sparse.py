@@ -11,14 +11,20 @@ device memory.
 One round of the hand-written CUDA kernel (``csrc/maxplus_sparse.cu``)
 does, for all K configs at once:
 
-  1. **chain pass** — ``t = cw + cummax_within_chain(c - cw)``: one thread
-     per (chain, config) walks its chain in order (the TPU's doubling scan
-     existed for its tiles and is not carried over);
+  1. **chain pass** — ``t = cw + cummax_within_chain(c - cw)``, over the
+     segments of the graph's segment table (every chain cut into runs of
+     at most :func:`~repro_torch.core.graph.segment_length` nodes): one
+     thread per (segment, config) takes its segment's max of ``c - cw``,
+     then one per (segment, config) carries the maxima of the earlier
+     segments of its chain in and walks its segment (4 configs a thread
+     where K is a multiple of 4; the TPU's doubling scan existed for its
+     tiles and is not carried over; the plain form of this decomposition
+     is :func:`~.ref.segment_cummax_ref`);
   2. **cross pass** — static RAW edges ``c[dst] = max(c[dst], t[src]+w)``
      and the WAR edges regenerated on the device from the depth block
      (write ``wseq`` of FIFO ``f`` under depth ``S`` waits on read
-     ``wseq - S - 1``, weight 1): one thread per (edge, config), no
-     atomics, because destinations are unique.
+     ``wseq - S - 1``, weight 1): one thread per (edge, config), or per
+     (edge, 4 configs), no atomics, because destinations are unique.
 
 A row whose times pass the acyclic ``bound`` is frozen as diverged (a WAR
 cycle) before the cross pass of that round.  The loop stops when no row
@@ -47,7 +53,7 @@ from .ref import solve_chains_ref
 NEG = -(1 << 29)
 _ARRAY_FIELDS = ("cw", "chain_lo", "chain_hi", "c_seed", "raw_dst", "raw_src",
                  "raw_w", "war_dst", "war_wseq", "war_fid", "war_nr",
-                 "war_roff", "war_rcols")
+                 "war_roff", "war_rcols", "seg_lo", "seg_hi", "seg_first")
 
 
 def to_device(arr: ChainFlatArrays, device) -> ChainFlatArrays:
@@ -70,6 +76,9 @@ def _check(arr: ChainFlatArrays, depth: torch.Tensor) -> None:
                              f"int32 tensor on {dev} (see to_device)")
     if arr.cw.shape[0] != arr.n or arr.c_seed.shape[0] != arr.n:
         raise ValueError("cw and c_seed must have one entry per node")
+    if not arr.seg_lo.shape[0] == arr.seg_hi.shape[0] \
+            == arr.seg_first.shape[0]:
+        raise ValueError("the segment table's arrays differ in length")
     if arr.war_fid.shape[0] and int(arr.war_fid.max()) >= depth.shape[1]:
         raise ValueError("depth block has fewer columns than the graph's "
                          "FIFOs")
@@ -106,21 +115,23 @@ def _solve_chains_cuda(arr: ChainFlatArrays, depth: torch.Tensor):
     dev = depth.device
     K, n = depth.shape[0], arr.n
     c = arr.c_seed[:, None].expand(n, K).contiguous()
-    t = c.clone()
+    t = torch.empty_like(c)             # the first round's walk writes all
     depth_t = depth.t().contiguous()                    # (F, K)
     diverged = torch.zeros(K, dtype=torch.int32, device=dev)
     changed = torch.zeros(K, dtype=torch.int32, device=dev)
     any_changed = torch.zeros(1, dtype=torch.int32, device=dev)
     stream = stream_of(depth)
     E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
-    nchains = arr.chain_lo.shape[0]
+    nseg = arr.seg_lo.shape[0]
+    segmax = torch.empty((nseg, K), dtype=torch.int32, device=dev)
     rounds = 0
     for batch in check_batches(n + 2):
         for _ in range(batch):
             SPARSE.call(
                 "maxplus_sparse_round", c.data_ptr(), t.data_ptr(),
-                arr.cw.data_ptr(), arr.chain_lo.data_ptr(),
-                arr.chain_hi.data_ptr(), nchains,
+                arr.cw.data_ptr(), arr.seg_lo.data_ptr(),
+                arr.seg_hi.data_ptr(), arr.seg_first.data_ptr(), nseg,
+                segmax.data_ptr(),
                 arr.raw_dst.data_ptr(), arr.raw_src.data_ptr(),
                 arr.raw_w.data_ptr(), E,
                 arr.war_dst.data_ptr(), arr.war_wseq.data_ptr(),

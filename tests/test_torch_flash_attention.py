@@ -9,6 +9,8 @@ order; the errors seen are ~1e-6); bfloat16 at the reference's own 2e-2
 can round either way).  The CUDA kernel itself runs only on the card
 (``tests/test_torch_gpu.py``).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,6 +120,94 @@ def test_window_of_one_keeps_only_the_diagonal():
     q, k, v = (torch.from_numpy(_bhsd(x)) for x in _inputs(3, 1, S, 1, 1, hd))
     out = tkernel.flash_attention_bhsd(q, k, v, causal=True, window=1)
     np.testing.assert_allclose(out.numpy(), v.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _tensor_core_numerics(q, k, v, *, causal, window, softcap, group_size):
+    """Plain emulation of the bf16 tensor-core kernel's arithmetic
+    (``flash_tc_kernel`` in ``csrc/flash_attention.cu``): 64-row query
+    tiles over the kept key tiles (64 keys, 32 at hd 256), scores from
+    the bf16 operands in f32, the online softmax in base
+    2, P rounded to bf16 (a bf16 high part plus a bf16 low part on the
+    tiles that cross a mask bound and on every tile of a query tile whose
+    rows keep fewer than 256 keys), the denominator summed from P in f32,
+    and the f32 accumulator rounded to bf16 once at the end."""
+    BH, S, hd = q.shape
+    BQ, BK = 64, (64 if hd <= 128 else 32)
+    log2e = 1.0 / math.log(2.0)
+    qf = q.float()
+    kf = k.float().repeat_interleave(group_size, dim=0)
+    vf = v.float().repeat_interleave(group_size, dim=0)
+    out = torch.zeros(BH, S, hd)
+    for q0 in range(0, S, BQ):
+        rows = torch.arange(q0, min(q0 + BQ, S))
+        k_hi = int(rows[-1]) + 1 if causal else S
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        min_keys = q0 + 1 if causal else S
+        if window > 0:
+            min_keys = min(min_keys, window)
+        m = torch.full((BH, len(rows)), -math.inf)
+        l = torch.zeros(BH, len(rows))
+        acc = torch.zeros(BH, len(rows), hd)
+        for t in range(k_lo // BK, (k_hi + BK - 1) // BK):
+            kb = t * BK
+            keys = torch.arange(kb, min(kb + BK, S))
+            s = qf[:, rows] @ kf[:, keys].transpose(1, 2)
+            if softcap > 0:
+                s = softcap * torch.tanh(s / math.sqrt(hd) / softcap) * log2e
+            else:
+                s = s * (log2e / math.sqrt(hd))
+            masked = (kb + BK > S or (causal and kb + BK - 1 > q0)
+                      or (window > 0 and kb <= q0 + BQ - 1 - window))
+            if masked:
+                keep = torch.ones(len(rows), len(keys), dtype=torch.bool)
+                if causal:
+                    keep &= keys[None, :] <= rows[:, None]
+                if window > 0:
+                    keep &= keys[None, :] > rows[:, None] - window
+                s = s.masked_fill(~keep, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            base = torch.where(m_new == -math.inf, 0.0, m_new)
+            alpha = torch.exp2(m - base)
+            p = torch.exp2(s - base[..., None])
+            parts = [p.bfloat16().float()]
+            if masked or min_keys < 256:
+                parts.append((p - parts[0]).bfloat16().float())
+            l = alpha * l + p.sum(dim=-1)
+            acc = alpha[..., None] * acc
+            for part in parts:
+                acc = acc + part @ vf[:, keys]
+            m = m_new
+        out[:, rows] = torch.where(l[..., None] > 0,
+                                   acc / l.clamp_min(1e-30)[..., None], 0.0)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("S,hd,H,Hkv,window,softcap,causal", [
+    (300, 64, 6, 2, 0, 0.0, True),       # causal, GQA 3:1, ragged S
+    (200, 32, 4, 1, 0, 0.0, True),
+    (130, 256, 4, 1, 0, 0.0, True),      # 32-key tiles
+    (333, 64, 4, 1, 100, 50.0, True),    # window and softcap
+    (257, 256, 2, 2, 64, 30.0, True),
+    (150, 64, 2, 1, 0, 30.0, False),     # not causal
+    (129, 64, 3, 1, 1, 0.0, True),       # one kept key a row
+    (129, 32, 4, 2, 2, 0.0, True),       # two kept keys a row
+    (2, 64, 2, 1, 0, 0.0, True),         # rows of one and two keys
+    (640, 64, 12, 3, 0, 0.0, True),      # rows past 256 keys: P rounded once
+])
+def test_tensor_core_numerics_stay_inside_the_bf16_tolerance(
+        S, hd, H, Hkv, window, softcap, causal):
+    """The tensor-core route rounds P to bf16 before P.V, which the exact
+    plain version does not; emulated on seeded N(0, 1) inputs, its output
+    stays inside the bound that ``chip_smoke.py`` phase 8 holds the bf16
+    kernel to: rtol 2^-7 (one bf16 step of the output) and atol 1e-3."""
+    q, k, v = (torch.from_numpy(_bhsd(x)).bfloat16()
+               for x in _inputs(S + hd, 1, S, H, Hkv, hd))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              group_size=H // Hkv)
+    got = _tensor_core_numerics(q, k, v, **kw)
+    want = tref.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
 
 
 def test_flash_attention_matches_model_sdpa():

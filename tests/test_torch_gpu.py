@@ -9,6 +9,9 @@ tests hold against the reference.  This file imports only the port (no
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,9 +22,10 @@ from repro_torch.designs.paper import fig4_ex5
 from repro_torch.designs.typea import (merge_sort_staged, producer_consumer,
                                        skynet_like)
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.maxplus import kernel, ops, ref
+from repro_torch.kernels.maxplus import kernel, ops, ref, sparse
 
 pytestmark = pytest.mark.gpu
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -81,6 +85,38 @@ def test_sparse_fixpoint_matches_plain_version(dev):
     assert rounds_p <= rounds < rounds_p + _cuda.CHECK_CAP
     assert torch.equal(c_k, c_p)
     assert torch.equal(t_k[:, c_k], t_p[:, c_p])
+
+
+def test_segmented_fixpoint_on_long_chains_matches_plain_version(dev):
+    """``chip_smoke.py``'s synthetic chain graph with 3 chains of 1 000 to
+    3 000 nodes (lengths that are not multiples of the segment length),
+    K = 1 000 (not a multiple of 4: the scalar path) and depths 1-64,
+    under which about a third of the rows form WAR cycles: the kernel's
+    times and converged mask on every row equal the plain version's, bit
+    for bit."""
+    from repro_torch.core.graph import export_chain_flat
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(14)
+    n, args = smoke.synthetic_chain_graph(rng, chains=3, lens=(1000, 3000))
+    arr = sparse.to_device(export_chain_flat(*args, neg=sparse.NEG), dev)
+    L = int((arr.seg_hi - arr.seg_lo).max())
+    lens = (arr.chain_hi - arr.chain_lo).tolist()
+    assert all(x % L for x in lens), (lens, L)
+    D = torch.from_numpy(rng.integers(1, 65, size=(1000, 6))
+                         .astype(np.int32)).to(dev)
+    before = _cuda.SPARSE.launches
+    t_k, c_k, rounds = sparse.solve_chains(arr, D)
+    assert _cuda.SPARSE.launches - before == rounds
+    t_p, c_p, rounds_p = ref.solve_chains_ref(arr, D)
+    assert rounds_p <= rounds < rounds_p + _cuda.CHECK_CAP
+    assert 0 < int(c_p.sum()) < 1000          # some rows are WAR cycles
+    assert torch.equal(c_k, c_p)
+    # a row frozen as diverged keeps the times of its last chain pass in
+    # both versions, so every row's times agree
+    assert torch.equal(t_k, t_p)
 
 
 @pytest.mark.parametrize("lane", ["cuda", "cuda_dense"])
@@ -143,27 +179,37 @@ def _flash_inputs(dev, dtype, B, S, H, Hkv, hd, seed=0):
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("S,window,softcap,causal", [
     (128, 0, 0.0, True),
+    (1, 0, 0.0, True),           # one row, one key
+    (63, 0, 0.0, True),          # ragged S, one partial q tile
+    (65, 0, 0.0, True),          # one row past a full tile
     (1000, 0, 0.0, True),        # ragged S
     (333, 100, 50.0, True),      # window and softcap, ragged
     (200, 0, 30.0, False),       # not causal
     (257, 1, 0.0, True),         # window 1: only the diagonal is kept
 ])
+@pytest.mark.parametrize("group", [1, 3, 4])
 def test_flash_kernel_matches_plain_version(dev, dtype, hd, S, window,
-                                            softcap, causal):
-    """bf16: the kernel and the plain version both accumulate in f32 and
-    round the output to bf16 once, so they differ by about one bf16 step
-    of the output (|o| <~ 3): 2e-2.  f32: summation order only: 2e-5."""
+                                            softcap, causal, group):
+    """bf16 takes the tensor-core route: P is rounded to bf16 before P.V
+    and the output to bf16 once, so the two differ by about one bf16 step
+    of the output (|o| <~ 3): 2e-2.  f32 takes the FMA route: summation
+    order only: 2e-5.  Each launch counts under its route only."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref as fr
     tdt = getattr(torch, dtype)
-    q, k, v = _flash_inputs(dev, tdt, 2, S, 6, 2, hd, seed=S + hd)
+    route = "tensor_core_bf16" if dtype == "bfloat16" else "fma_f32"
+    q, k, v = _flash_inputs(dev, tdt, 2, S, 2 * group, 2, hd,
+                            seed=S + hd + group)
     before = _cuda.FLASH.launches
+    routes = dict(_cuda.FLASH.route_launches)
     got = fk.flash_attention_bhsd(q, k, v, causal=causal, window=window,
-                                  softcap=softcap, group_size=3)
+                                  softcap=softcap, group_size=group)
     torch.cuda.synchronize()
     assert _cuda.FLASH.launches == before + 1
+    assert _cuda.FLASH.route_launches == {
+        r: n + (r == route) for r, n in routes.items()}
     want = fr.attention_ref(q, k, v, causal=causal, window=window,
-                            softcap=softcap, group_size=3)
+                            softcap=softcap, group_size=group)
     assert got.dtype == tdt and got.shape == q.shape
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -189,7 +235,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(dev):
 def test_prefill_step_launches_one_kernel_per_layer(dev):
     """The smoke model's prefill on the card against the same model on the
     CPU (plain version): f32, so the tolerance is the f32 summation
-    order's."""
+    order's; it takes the f32 route once per layer.  In bf16 it takes the
+    tensor-core route once per layer."""
     from repro_torch.configs import get_arch
     from repro_torch.models import api
     from repro_torch.train.step import make_prefill_step
@@ -201,11 +248,22 @@ def test_prefill_step_launches_one_kernel_per_layer(dev):
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 77)))
     before = _cuda.FLASH.launches
+    routes = dict(_cuda.FLASH.route_launches)
     got = make_prefill_step(cfg)(params, {"tokens": toks.to(dev)})
     torch.cuda.synchronize()
     assert _cuda.FLASH.launches - before == cfg.num_layers
+    assert _cuda.FLASH.route_launches == {
+        "fma_f32": routes["fma_f32"] + cfg.num_layers,
+        "tensor_core_bf16": routes["tensor_core_bf16"]}
     want = make_prefill_step(cfg)(cpu_params, {"tokens": toks})
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    out16 = make_prefill_step(cfg.replace(dtype="bfloat16"))(
+        params, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out16.float()).all())
+    assert _cuda.FLASH.route_launches == {
+        "fma_f32": routes["fma_f32"] + cfg.num_layers,
+        "tensor_core_bf16": routes["tensor_core_bf16"] + cfg.num_layers}
 
 
 # ------------------------------------------------------------- mlstm chunk

@@ -30,6 +30,7 @@ from repro.kernels.maxplus import ref as ref_ref
 from repro.kernels.maxplus import sparse as ref_sparse
 import repro_torch.core.dse as tdse
 from repro_torch.core import compile_graph, simulate
+from repro_torch.core.graph import segment_length, segment_table
 from repro_torch.designs.typea import producer_consumer, skynet_like
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.maxplus import kernel, ops, ref, sparse
@@ -185,6 +186,83 @@ def test_segmented_cummax_max_seg_cap_case():
         assert np.array_equal(got.numpy().T, want), max_seg
 
 
+# chain lengths and segment length L: ragged chains; chains shorter than,
+# equal to and one longer than L; one-node chains; an empty chain
+_SEGMENT_CASES = {
+    "ragged": ([5, 17, 1, 33, 8, 64, 3], 8),
+    "shorter_equal_longer": ([7, 8, 9], 8),
+    "one_node": ([1], 16),
+    "one_node_chains_L1": ([1, 1, 2, 1], 1),
+    "with_empty_chain": ([4, 0, 9, 16], 4),
+    "one_long_chain": ([4610], 72),
+    "matmul_stream_like": ([258, 258, 4098, 4610], 72),
+}
+
+
+def _chain_bounds(lens):
+    lo = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    return lo, lo + np.asarray(lens, np.int64)
+
+
+@pytest.mark.parametrize("case", sorted(_SEGMENT_CASES))
+def test_segment_table_covers_every_node_once_within_its_chain(case):
+    """The sparse kernel's work units: every column of every chain in
+    exactly one segment of at most L nodes, no segment crossing a chain,
+    segments in chain order, each pointing at its chain's first."""
+    lens, L = _SEGMENT_CASES[case]
+    lo, hi = _chain_bounds(lens)
+    seg_lo, seg_hi, seg_first = segment_table(lo, hi, L)
+    assert all(a.dtype == np.int32 for a in (seg_lo, seg_hi, seg_first))
+    assert len(seg_lo) == sum(-(-n // L) for n in lens)
+    cover = np.zeros(sum(lens), np.int64)
+    for s, (a, b, f) in enumerate(zip(seg_lo, seg_hi, seg_first)):
+        assert 0 < b - a <= L
+        cover[a:b] += 1
+        c = int(np.searchsorted(hi, a, "right"))      # chain holding a
+        assert lo[c] <= a and b <= hi[c]
+        assert seg_lo[f] == lo[c] and f <= s
+        assert s == 0 or seg_lo[s] >= seg_hi[s - 1]
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("case", sorted(_SEGMENT_CASES))
+def test_segment_decomposition_matches_chain_cummax(case):
+    """The plain form of the kernel's chain pass (segment maxima, carried
+    prefix, walk) equals the per-chain cummax of the plain version and
+    the reference's segmented cummax, NEG entries included."""
+    lens, L = _SEGMENT_CASES[case]
+    lo, hi = _chain_bounds(lens)
+    rng = np.random.default_rng(sum(lens) + L)
+    x = rng.integers(-50, 50, size=(sum(lens), 6)).astype(np.int32)
+    x[rng.random(x.shape) < 0.3] = sparse.NEG
+    table = [torch.from_numpy(a) for a in segment_table(lo, hi, L)]
+    got = ref.segment_cummax_ref(torch.from_numpy(x), *table)
+    want = ref.segmented_cummax_ref(torch.from_numpy(x), torch.from_numpy(lo),
+                                    torch.from_numpy(hi))
+    assert torch.equal(got, want)
+    seg_start = np.repeat(lo, lens).astype(np.int32)
+    theirs = ref_sparse.segmented_cummax_ref(jnp.asarray(x.T),
+                                             jnp.asarray(seg_start))
+    assert np.array_equal(got.numpy().T, np.asarray(theirs))
+
+
+@pytest.mark.parametrize("lens,want", [([1], 16), ([258, 4610], 48),
+                                       ([514] * 10, 16), ([4098] * 26, 48),
+                                       ([20000], 96), ([], 16)])
+def test_segment_length_is_about_the_root_of_the_longest_chain(lens, want):
+    assert segment_length(np.asarray(lens, np.int64)) == want
+
+
+def test_exported_segment_table_is_the_chains_cut_at_segment_length():
+    g = compile_graph(simulate(skynet_like(items=16, depth=4)).graph)
+    arr = tdse._sparse_arrays(tdse._batch_arrays(g), "cpu")
+    lo, hi = arr.chain_lo.numpy(), arr.chain_hi.numpy()
+    table = segment_table(lo, hi, segment_length(hi - lo))
+    for got, want in zip((arr.seg_lo, arr.seg_hi, arr.seg_first), table):
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+
+
 def test_solve_chains_matches_reference_sparse_and_numpy_solvers():
     """End-to-end sparse solve (plain version) vs the reference's Pallas
     ``solve_chains`` and its numpy Gauss-Seidel solver, WAR edges active:
@@ -253,13 +331,22 @@ def test_solve_chains_rejects_bad_inputs():
 
 # --------------------------------------------------------------- the build
 def test_kernel_sources_and_build_dir():
-    """Both kernels are CUDA sources of the package, built for sm_90a into
-    a directory that git ignores."""
+    """Every kernel is a CUDA source of the package, built for sm_90a into
+    a directory that git ignores, under a name that changes with its
+    source.  The sources include no header of their own: the digest
+    hashes only the ``.cu`` file, so a ``csrc/*.cuh`` must join it
+    first."""
+    assert not list(_cuda.CSRC.glob("*.cuh"))
     for lib in _cuda.LIBS:
         assert lib.source.exists(), lib.source
-        assert "extern \"C\"" in lib.source.read_text()
+        text = lib.source.read_text()
+        assert "extern \"C\"" in text
+        assert '#include "' not in text
+        assert lib.target().parent == _cuda.BUILD_DIR
+        assert lib.target().name.startswith(f"lib{lib.name}-")
     assert "arch=compute_90a,code=sm_90a" in _cuda.ARCH_FLAGS
     assert _cuda.BUILD_DIR == Path(ROOT) / "build" / "kernels"
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "build/" in f.read().split()
     assert _cuda.SPARSE.launches >= 0 and _cuda.DENSE.launches >= 0
+    assert set(_cuda.FLASH.route_launches) == {"tensor_core_bf16", "fma_f32"}
