@@ -70,7 +70,12 @@ Phases, each printing its own line:
   12. the chunked-mLSTM kernel against its plain version on the card, on
      seeded f32 inputs: (a) xlstm-1.3b's shape, B 4, S 2048, H 4, P 1024,
      Pv 1025, chunk 256; (b) the reference test's odd widths, P 64, Pv 65,
-     chunk 32; (c) a single chunk (S 200 <= 256) at P 1024, Pv 1025;
+     chunk 32; (c) a single chunk (S 200 <= 256) at P 1024, Pv 1025; and
+     (d) the reference's prefill_32k length, B 1, S 32 768, with a slowly
+     decaying forget gate, so that the state is carried over many of the
+     128 chunks, against the port's chunked plain scan
+     (``models/xlstm.py::_ssd_scan_perhead``: the O(S^2) plain version
+     does not fit there);
   13. the xlstm serving path on xlstm-1.3b at its published widths (48
      layers: 6 supergroups of 7 mLSTM blocks and one sLSTM block,
      d_model 2048, vocab 50 304) with seeded random weights (drawn on the
@@ -248,6 +253,7 @@ def main():
     from repro_torch.kernels.mlstm_chunk import ref as mc_ref
     from repro_torch.models import api, lm
     from repro_torch.models.xlstm import MLSTM
+    from repro_torch.models.xlstm import _ssd_scan_perhead as xscan
     from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
     from repro_torch.train.step import make_prefill_step
 
@@ -965,16 +971,18 @@ def main():
             "by_shape": by_shape, "prefill_logits_err": lm_err})
 
     # --------------------------------------------------------------- 12
-    def mlstm_inputs(BH, S, P, Pv):
+    def mlstm_inputs(BH, S, P, Pv, gate_bias=1.0):
         """Seeded f32 q [BH, S, P] (scaled by 1/sqrt(P), as the model
         scales it), k [BH, S, P], v [BH, S, Pv], ig (a sigmoid) and la (a
-        log-sigmoid, <= 0) [BH, S], on the card."""
+        log-sigmoid, <= 0, of a normal plus ``gate_bias``) [BH, S], on the
+        card.  Bias 1 keeps exp(-100) of the state over a chunk of 256;
+        bias 8 keeps ~exp(-0.09), as a forget gate that remembers."""
         q = rng.standard_normal((BH, S, P), dtype=np.float32) / np.sqrt(P)
         k = rng.standard_normal((BH, S, P), dtype=np.float32)
         v = rng.standard_normal((BH, S, Pv), dtype=np.float32)
         g = rng.standard_normal((2, BH, S), dtype=np.float32)
         ig = 1 / (1 + np.exp(-g[0]))
-        la = -np.logaddexp(0, -(g[1] + 1.0))
+        la = -np.logaddexp(0, -(g[1] + gate_bias))
         return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
                 for x in (q, k, v, ig, la)]
 
@@ -1016,6 +1024,33 @@ def main():
                 f"f32: max abs err {err:.3g} (max |y| {scale:.3g}, allowed "
                 f"{2e-4 * scale:.3g})")
             del xs, got, want
+        # (d) prefill_32k, the state carried over 128 chunks.  The plain
+        # reference is the chunked scan (the O(S^2) version would need a
+        # [4, 32768, 32768] score tensor): f32 with TF32 off, summing in
+        # another order than the kernel, whose products carry the bf16
+        # split's ~2^-16 relative error; the same 2e-4 x max |y|.  The
+        # readout grows to |y| ~ 100 where the state is kept
+        B, S, H, P, Pv, chunk = 1, 32768, 4, 1024, 1025, 256
+        name = "d prefill_32k, slow decay"
+        xs = mlstm_inputs(B * H, S, P, Pv, gate_bias=8.0)
+        got = mc_kernel.mlstm_chunk_bhsd(*xs, chunk=chunk)
+        sync()
+
+        def bshd(x):
+            return x.reshape(B, H, S, -1).transpose(1, 2)
+
+        want = xscan(*(bshd(x) for x in xs[:3]), bshd(xs[3])[..., 0],
+                     bshd(xs[4])[..., 0], chunk=chunk)
+        want = want.transpose(1, 2).reshape(B * H, S, Pv)
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        mlstm_err[name] = err
+        check(bool(torch.isfinite(got).all()) and err <= 2e-4 * scale,
+              f"mlstm ({name}): max abs err {err:.3g} > 2e-4 x {scale:.3g}")
+        log(f"  ({name}) B={B} S={S} H={H} P={P} Pv={Pv} chunk={chunk} "
+            f"f32, gate bias 8, vs the chunked scan: max abs err {err:.3g} "
+            f"(max |y| {scale:.3g}, allowed {2e-4 * scale:.3g})")
+        del xs, got, want
 
     # ------------------------------------------ xlstm main path (13)
     xcfg = get_arch("xlstm-1.3b")
@@ -1239,8 +1274,11 @@ def main():
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "shape": top["shape"],
-            "design": "f32 FMA from shared memory, state tile per (head, "
-                      "32 columns)",
+            "design": "tensor-core mma.sync, f32 operands split into bf16 "
+                      "high/low parts (3 products), f32 state tile per "
+                      "(head, 32 columns) in the warps' registers, operands "
+                      "split once per (head, chunk) and streamed by "
+                      "cp.async",
             "by_shape": by_shape, "prefill_logits_err": x_err})
 
     if FAILURES:

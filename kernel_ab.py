@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's flash-attention and sparse max-plus kernels from two
-checkouts on one card, in turns.
+"""Time the port's flash-attention, chunked-mLSTM and sparse max-plus
+kernels from two checkouts on one card, in turns.
 
 Usage, from the repository root on a machine with one CUDA card::
 
@@ -16,6 +16,10 @@ checkout's own kernels and times, with CUDA events:
   * flash attention on bf16 inputs at smollm-135m's prefill shape (B 4,
     S 4096, 9 heads over 3, hd 64, causal) and at prefill_32k (B 1,
     S 32 768), median of 5 and of 3 calls;
+  * the chunked-mLSTM kernel on f32 inputs (as ``chip_smoke.py``'s phase
+    12 draws them) at xlstm-1.3b's prefill shape (B 4, S 2048, H 4,
+    P 1024, Pv 1025, chunk 256) and at prefill_32k (B 1, S 32 768),
+    median of 5 and of 3 calls;
   * one sparse fixpoint solve (``sparse.solve_chains``) of
     ``matmul_stream()`` and ``merge_sort_staged(8)`` at K = 1024 and of
     ``skynet_like()`` at K = 4096, the depth rows of ``chip_smoke.py``'s
@@ -46,6 +50,7 @@ def time_pass(root):
                                            skynet_like)
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.maxplus import sparse
+    from repro_torch.kernels.mlstm_chunk import kernel as mc_kernel
 
     dev = torch.device("cuda")
 
@@ -74,6 +79,20 @@ def time_pass(root):
         out[label] = cuda_ms(lambda: fa_kernel.flash_attention_bhsd(
             q, k, v, group_size=H // Hkv), reps)
         del q, k, v
+    rng = np.random.default_rng(0)
+    for label, B, S, reps in (("mlstm xlstm-1.3b 4x2048", 4, 2048, 5),
+                              ("mlstm prefill_32k", 1, 32768, 3)):
+        H, P, Pv, chunk = 4, 1024, 1025, 256
+        q = rng.standard_normal((B * H, S, P), dtype=np.float32) / np.sqrt(P)
+        k = rng.standard_normal((B * H, S, P), dtype=np.float32)
+        v = rng.standard_normal((B * H, S, Pv), dtype=np.float32)
+        g = rng.standard_normal((2, B * H, S), dtype=np.float32)
+        xs = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+              for x in (q, k, v, 1 / (1 + np.exp(-g[0])),
+                        -np.logaddexp(0, -(g[1] + 1.0)))]
+        out[label] = cuda_ms(lambda: mc_kernel.mlstm_chunk_bhsd(
+            *xs, chunk=chunk), reps)
+        del q, k, v, xs
     rng = np.random.default_rng(0)
     for label, build, K, hi in (
             ("sparse matmul_stream K=1024", matmul_stream, 1024, 8),

@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 # average).  32 keeps both small on the bundled designs' 450-8200 rounds.
 CHECK_CAP = 32
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -135,7 +135,8 @@ FLASH = CudaLib("flash_attention", {
     "flash_attention_fwd": [P, P, P, P, I, I, I, I, I, I, F, I, P],
 }, routes=("tensor_core_bf16", "fma_f32"))
 MLSTM = CudaLib("mlstm_chunk", {
-    "mlstm_chunk_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "mlstm_chunk_workspace": [I, I, I, I, P],
+    "mlstm_chunk_fwd": [P, P, P, P, P, P, P, L, I, I, I, I, I, P],
 })
 LIBS: List[CudaLib] = [SPARSE, DENSE, FLASH, MLSTM]
 

@@ -4,20 +4,25 @@ Replaces the reference's ``repro.kernels.mlstm_chunk.kernel
 .mlstm_chunk_bhsd`` (a Pallas call over ``_mlstm_kernel``).  One call of
 the hand-written CUDA routine (``csrc/mlstm_chunk.cu``) computes, for every
 head, the chunk-local decay-masked readout plus the readout of the f32
-``[P, Pv]`` state carried from the chunks before, chunk by chunk.  The
-state does not fit in one SM's shared memory at xlstm-1.3b's widths
-(4.2 MB at P 1024, Pv 1025), so it is split by columns across blocks; the
-routine runs three kernels in order (in-chunk cumsum, masked score tiles,
-the column-tiled recurrence), counted here as one launch.  Inputs and
-output are float32; any S that is a multiple of ``chunk``, any Pv, and P
-up to what one block's shared memory holds (1024 at chunk 256): the
-routine checks that and its grid limits itself and returns an error, which
-the call raises.
+``[P, Pv]`` state carried from the chunks before, chunk by chunk, with
+every product on the tensor cores at f32 accuracy (bf16 high and low
+parts, three products each).  The state does not fit one SM at
+xlstm-1.3b's widths (4.2 MB at P 1024, Pv 1025), so it is split by
+columns across blocks, each keeping its [32, P] share in registers; the
+routine runs four kernels in order (in-chunk cumsum, the operands split
+once per chunk, masked score tiles, the column-tiled recurrence), counted
+here as one launch, in a scratch buffer whose size the routine reports.
+Inputs and output are float32; any S that is a multiple of ``chunk``, any
+Pv, P up to 1024 and ``chunk`` up to what one block's shared memory holds
+(624): the routine checks that and its grid limits itself and returns an
+error, which the call raises.
 
 Dispatch rule: a CUDA tensor launches the kernel (or the call raises); a
 CPU tensor runs the plain version (:func:`~.ref.mlstm_ref`).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -64,12 +69,14 @@ def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v, ig and la must be contiguous")
     out = torch.empty(BH, S, Pv, dtype=torch.float32, device=q.device)
     if BH and S and P and Pv:
-        cum = torch.empty(BH, S, dtype=torch.float32, device=q.device)
-        scores = torch.empty(BH * (S // chunk), chunk, chunk,
-                             dtype=torch.float32, device=q.device)
+        nbytes = ctypes.c_longlong()
+        MLSTM.call("mlstm_chunk_workspace", BH, S, P, chunk,
+                   ctypes.addressof(nbytes))
+        scratch = torch.empty(nbytes.value, dtype=torch.uint8,
+                              device=q.device)
         MLSTM.call("mlstm_chunk_fwd", q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), ig.data_ptr(), la.data_ptr(),
-                   out.data_ptr(), cum.data_ptr(), scores.data_ptr(), BH, S,
+                   out.data_ptr(), scratch.data_ptr(), nbytes.value, BH, S,
                    P, Pv, chunk, stream_of(q))
         MLSTM.launches += 1
     return out

@@ -267,35 +267,41 @@ def test_prefill_step_launches_one_kernel_per_layer(dev):
 
 
 # ------------------------------------------------------------- mlstm chunk
-def _mlstm_inputs(dev, BH, S, P, Pv, seed=0):
+def _mlstm_inputs(dev, BH, S, P, Pv, seed=0, gate_bias=1.0):
     """q scaled by 1/sqrt(P) as the model scales it; ig a sigmoid, la a
-    log-sigmoid (<= 0)."""
+    log-sigmoid (<= 0) of a normal plus ``gate_bias``: 1 forgets most of
+    the state within a chunk, 8 keeps it over many chunks."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((BH, S, P)) / np.sqrt(P)
     k = rng.standard_normal((BH, S, P))
     v = rng.standard_normal((BH, S, Pv))
     ig = 1 / (1 + np.exp(-rng.standard_normal((BH, S))))
-    la = -np.logaddexp(0, -(rng.standard_normal((BH, S)) + 1.0))
+    la = -np.logaddexp(0, -(rng.standard_normal((BH, S)) + gate_bias))
     return [torch.from_numpy(x.astype(np.float32)).to(dev)
             for x in (q, k, v, ig, la)]
 
 
-@pytest.mark.parametrize("BH,S,P,Pv,chunk", [
-    (6, 128, 64, 65, 32),         # the reference test's odd widths
-    (6, 256, 32, 32, 64),
-    (2, 256, 32, 33, 256),        # one chunk, two 128-row passes
-    (2, 16, 64, 65, 16),          # S = chunk
-    (3, 24, 20, 7, 12),           # ragged tiles everywhere
-    (1, 300, 40, 70, 150),
-    (2, 512, 1024, 1025, 256),    # xlstm-1.3b's widths and chunk
+@pytest.mark.parametrize("BH,S,P,Pv,chunk,gate_bias", [
+    (6, 128, 64, 65, 32, 1.0),       # the reference test's odd widths
+    (6, 256, 32, 32, 64, 1.0),
+    (2, 256, 32, 33, 256, 1.0),      # one chunk, 256 rows
+    (2, 16, 64, 65, 16, 1.0),        # S = chunk
+    (3, 24, 20, 7, 12, 1.0),         # ragged tiles everywhere
+    (1, 300, 40, 70, 150, 1.0),
+    (2, 1024, 24, 41, 512, 1.0),     # chunk > 256: two y passes a chunk
+    (2, 512, 1024, 1025, 256, 1.0),  # xlstm-1.3b's widths and chunk
+    (3, 192, 48, 17, 48, 1.0),       # Pv = 17 = 1 mod 8: a lone column
+    (2, 2048, 32, 33, 16, 8.0),      # 128 chunks, the state carried
 ])
-def test_mlstm_kernel_matches_plain_version(dev, BH, S, P, Pv, chunk):
-    """f32 throughout; the chunked kernel and the direct O(S^2) plain
-    version sum in another order: the reference's 2e-4 (relative to the
-    readout's scale, |y| up to ~20 at P 1024)."""
+def test_mlstm_kernel_matches_plain_version(dev, BH, S, P, Pv, chunk,
+                                            gate_bias):
+    """f32 throughout; the chunked kernel (split-bf16 products on the
+    tensor cores, f32 state) and the direct O(S^2) plain version sum in
+    another order: the reference's 2e-4 (relative to the readout's scale,
+    |y| up to ~20 at P 1024)."""
     from repro_torch.kernels.mlstm_chunk import kernel as mk
     from repro_torch.kernels.mlstm_chunk import ref as mr
-    xs = _mlstm_inputs(dev, BH, S, P, Pv, seed=S + P)
+    xs = _mlstm_inputs(dev, BH, S, P, Pv, seed=S + P, gate_bias=gate_bias)
     before = _cuda.MLSTM.launches
     got = mk.mlstm_chunk_bhsd(*xs, chunk=chunk)
     torch.cuda.synchronize()
@@ -319,14 +325,20 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(dev):
         mk.mlstm_chunk_bhsd(q, k, v, ig, la, chunk=48)
     with pytest.raises(ValueError, match="is on"):
         mk.mlstm_chunk_bhsd(q, k.cpu(), v, ig, la, chunk=32)
-    # the CUDA routine's own checks: P 2048's state tile does not fit one
-    # block's shared memory; 65 536 chunks exceed the score grid's z limit
-    big = _mlstm_inputs(dev, 1, 256, 2048, 8)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        mk.mlstm_chunk_bhsd(*big, chunk=256)
+    # the CUDA routine's own checks: a block keeps its [32, P] state tile
+    # in registers, 1024 columns at most, whatever the chunk (P 2048 at
+    # chunk 256, P 1040 at chunk 16); a chunk's v tile and two ring stages
+    # must fit its shared memory (chunk 1024 does not); 65 536 chunks
+    # exceed the score grid's z limit
+    for S, P, chunk in ((256, 2048, 256), (64, 1040, 16), (1024, 16, 1024)):
+        big = _mlstm_inputs(dev, 1, S, P, 8)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mk.mlstm_chunk_bhsd(*big, chunk=chunk)
     many = _mlstm_inputs(dev, 1, 65536, 8, 8)
     with pytest.raises(RuntimeError, match="CUDA error"):
         mk.mlstm_chunk_bhsd(*many, chunk=1)
+    ok = _mlstm_inputs(dev, 1, 1024, 16, 8)      # the largest chunk taken
+    assert torch.isfinite(mk.mlstm_chunk_bhsd(*ok, chunk=512)).all()
 
 
 def test_xlstm_prefill_launches_one_kernel_per_mlstm_block(dev):

@@ -155,3 +155,121 @@ def test_wrapper_raises_off_the_cpu_without_the_card(where):
     with pytest.raises(ValueError, match=match):
         tkernel.mlstm_chunk_bhsd(*xs, chunk=16)
     assert _cuda.MLSTM.launches == before
+
+
+# -------------------------------------------- the kernel's arithmetic, emulated
+def _split(x):
+    """x as a bf16 high part and a bf16 low part, each as f32 values."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm3(a, b, acc=None, products=3):
+    """acc + a @ b as the kernel's tensor cores take it: a and b split into
+    bf16 parts, the products al.bh + ah.bl + ah.bh (al.bl dropped) one
+    16-deep k-step at a time (the mma's depth), summed in f32.
+    ``products=1`` keeps ah.bh alone (one bf16 product)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    if acc is None:
+        acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    pairs = ((al, bh), (ah, bl), (ah, bh))[3 - products:]
+    for k0 in range(0, a.shape[-1], 16):
+        ks = slice(k0, k0 + 16)
+        for x, y in pairs:
+            acc = acc + x[..., ks] @ y[..., ks, :]
+    return acc
+
+
+def _tensor_core_numerics(q, k, v, ig, la, chunk, products=3):
+    """A plain emulation of ``csrc/mlstm_chunk.cu``'s arithmetic, in its
+    order: the in-chunk cumsum in f32; q~ = q exp(cum) and
+    kd = k exp(cum[c-1] - cum) ig, formed in f32 and split; the scores from
+    split q and k, masked before the exp, then split; per chunk one f32
+    accumulator for y over the score steps and then the carry steps
+    (v^T sc^T + state^T q~^T, skipped in chunk 0), and the f32 state
+    updated as decay * state + v^T kd (skipped after the last chunk), split
+    again for every chunk's carry product and never kept in 16 bits.
+    Shapes as ``mlstm_chunk_bhsd``'s: [BH, S, ·]; ``products`` as
+    :func:`_mm3`'s."""
+    BH, S, P = q.shape
+    Pv = v.shape[-1]
+    c, nC = chunk, S // chunk
+    cum = torch.cumsum(la.reshape(BH, nC, c), dim=2)
+    q_, k_ = q.reshape(BH, nC, c, P), k.reshape(BH, nC, c, P)
+    v_ = v.reshape(BH, nC, c, Pv)
+    qt = q_ * torch.exp(cum)[..., None]
+    kd = k_ * (torch.exp(cum[..., -1:] - cum) * ig.reshape(BH, nC, c))[..., None]
+    causal = torch.ones(c, c, dtype=torch.bool).tril()
+    diff = (cum[..., :, None] - cum[..., None, :]).masked_fill(~causal, 0.0)
+    sc = torch.where(causal, _mm3(q_, k_.transpose(-1, -2), None, products)
+                     * torch.exp(diff)
+                     * ig.reshape(BH, nC, 1, c), torch.zeros(()))
+    state = torch.zeros(BH, P, Pv)
+    ys = []
+    for n in range(nC):
+        y = _mm3(sc[:, n], v_[:, n], None, products)
+        if n > 0:
+            y = _mm3(qt[:, n], state, y, products)
+        ys.append(y)
+        if n < nC - 1:
+            state = (torch.exp(cum[:, n, -1])[:, None, None] * state
+                     + _mm3(kd[:, n].transpose(1, 2), v_[:, n], None,
+                            products))
+    return torch.stack(ys, 1).reshape(BH, S, Pv)
+
+
+def _numerics_inputs(kind, BH, S, P, Pv):
+    """Seeded f32 inputs as phase 12 draws them; ``bf16_exact``: q, k, v
+    bf16 values widened (q then scaled by 1/32, exactly, as the model
+    scales it at P 1024); ``slow_decay``: la ~ -1e-3."""
+    rng = np.random.default_rng(S + P + Pv)
+    q = rng.standard_normal((BH, S, P)) / np.sqrt(P)
+    k = rng.standard_normal((BH, S, P))
+    v = rng.standard_normal((BH, S, Pv))
+    ig = 1 / (1 + np.exp(-rng.standard_normal((BH, S))))
+    la = -np.logaddexp(0, -(rng.standard_normal((BH, S)) + 1.0))
+    if kind == "slow_decay":
+        la = -1e-3 * rng.random((BH, S))
+    xs = [torch.from_numpy(x.astype(np.float32)) for x in (q, k, v, ig, la)]
+    if kind == "bf16_exact":
+        xs[0] = xs[0].mul(np.sqrt(P)).bfloat16().float() / 32
+        xs[1], xs[2] = (x.bfloat16().float() for x in xs[1:3])
+    return xs
+
+
+@pytest.mark.parametrize("kind,BH,S,P,Pv,chunk", [
+    ("f32", 3, 256, 48, 33, 32),          # general f32 inputs, odd Pv
+    ("f32", 2, 144, 20, 9, 24),           # P and chunk not multiples of 16
+    ("bf16_exact", 3, 256, 64, 65, 64),   # the model's path
+    ("slow_decay", 2, 1024, 32, 17, 16),  # 64 chunks, la ~ -1e-3
+])
+def test_tensor_core_numerics_stay_inside_the_f32_tolerance(
+        kind, BH, S, P, Pv, chunk):
+    """The kernel's split-bf16 products with an f32 state, emulated on the
+    CPU, against the plain version within phase 12's 2e-4 x max |y| (the
+    errors seen are 4-5 % of it).  The slow-decay case carries the state
+    over 64 chunks with barely any decay, where a state rounded to 16 bits
+    between chunks would drift."""
+    xs = _numerics_inputs(kind, BH, S, P, Pv)
+    got = _tensor_core_numerics(*xs, chunk)
+    want = tref.mlstm_ref(*xs)
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= 2e-4 * scale, (err, scale)
+    # and the emulation is the kernel's, not a copy of the plain version:
+    # the split products leave an error of their own
+    assert err > 0
+
+
+@pytest.mark.parametrize("kind", ["f32", "slow_decay"])
+def test_one_bf16_product_would_miss_the_f32_tolerance(kind):
+    """Why the kernel takes three products: the same schedule with one
+    bf16 product (ah.bh) misses phase 12's 2e-4 x max |y| many times over
+    (its operands keep 8 bits)."""
+    xs = _numerics_inputs(kind, 2, 256, 48, 33)
+    got = _tensor_core_numerics(*xs, 32, products=1)
+    want = tref.mlstm_ref(*xs)
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() > 5 * 2e-4 * scale
