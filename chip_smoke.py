@@ -91,7 +91,36 @@ Phases, each printing its own line:
      length (B 1, S 32 768) beside its bound (and its plain version at
      (a)); the xlstm prefill step's wall time and the sLSTM blocks' share
      of it, decode tokens per second, the device's busy share, and peak
-     device memory.  The run's total time is printed last.
+     device memory;
+  15. the sweep service on the card: ``repro_torch.sweep.SweepService``
+     with ``backend="cuda"`` (its default), every design at its defaults,
+     depth rows from phases 3-5:
+       (a) two tenants at once on the service's background thread: a bulk
+           tenant sweeps ``matmul_stream()`` (K 1024, submitted as a
+           Program, so the cache builds it cold) and, while it runs, an
+           interactive tenant ``fig4_ex5()`` (K 16, engine fallback);
+           every row against a direct ``resimulate_batch(backend="cuda")``
+           and a prefix against ``backend="numpy"``;
+       (b) ``merge_sort_staged(8)``, K 1024, block 256, served serially,
+           by two shard threads and by two ``spawn``-ed shard processes,
+           each bit-identical to phase 4's direct solve;
+       (c) ``skynet_like()``, K 4096, warmed from phase 3's base run, at
+           block 128 and at block 4096, against phase 3's direct solve;
+       (d) (a)'s bulk rows again in reverse order: all memo hits, no
+           kernel launch;
+       (e) (b)'s serial run under a ``FaultInjector(seed=0)``: one block's
+           solve faults past the retry budget (its rows FAULTED, cycles
+           -1), another's returns corrupt arrays once and is retried; all
+           other rows exact.
+     Kernel 1's launch count is zeroed just before and read just after
+     each of (a)-(c) (process workers count in their own processes, read
+     by probes sent to the pool).  Apart from (e), no row may be FAULTED,
+     TIMED_OUT or CANCELLED and no shard may be retried.  Printed: each
+     served sweep's wall time and configs/s, beside the direct
+     ``solve_block_status`` on the same rows at the same block and at
+     block = K; the cache's cold build; one profiled re-run's device time
+     over the wall time; peak device memory in (c).  The run's total time
+     is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
 float32 comparisons measure the kernels, not TF32.  The last two lines are
@@ -226,6 +255,16 @@ def synthetic_chain_graph(rng, chains=16, fifos=6, lens=(50, 400)):
                blocking, bound)
 
 
+def worker_sparse_launches(pause):
+    """(pid, kernel 1's launches) in a process-shard worker of phase 15,
+    which imports this file as its main module (``spawn``); the pause lets
+    each worker of the pool take one of the probes."""
+    from repro_torch.kernels import _cuda
+
+    time.sleep(pause)
+    return os.getpid(), _cuda.SPARSE.launches
+
+
 def main():
     import torch
 
@@ -235,8 +274,8 @@ def main():
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import (Emit, Program, Read, Write, compile_graph,
-                                  resimulate_batch, simulate,
-                                  solve_block_status)
+                                  program_fingerprint, resimulate_batch,
+                                  simulate, solve_block_status)
     from repro_torch.core import dse
     from repro_torch.core.graph import export_chain_flat, longest_path_numpy
     from repro_torch.designs.paper import fig4_ex5
@@ -255,6 +294,7 @@ def main():
     from repro_torch.models.xlstm import MLSTM
     from repro_torch.models.xlstm import _ssd_scan_perhead as xscan
     from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+    from repro_torch.sweep import FaultInjector, SweepService
     from repro_torch.train.step import make_prefill_step
 
     t_start = time.perf_counter()
@@ -1280,6 +1320,259 @@ def main():
                       "split once per (head, chunk) and streamed by "
                       "cp.async",
             "by_shape": by_shape, "prefill_logits_err": x_err})
+
+    # --------------------------------------------------------------- 15
+    def busy_of(fn, wall_s):
+        """Device time (kernels and copies) of one fn() under
+        torch.profiler over ``wall_s``, the wall time of the counted run,
+        as text, with the device events' count and the longest kind.  A
+        profiling session loses its first ~10 device events (on the H100,
+        9-13 of kernel 1's launches went missing from each session, and
+        all of a 3-round solve's), so 64 spin kernels go first; they are
+        left out of the sum, and the ones lost are reported."""
+        from torch.profiler import ProfilerActivity, profile
+        spins = 64
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(spins):
+                torch.cuda._sleep(100)
+            sync()
+            fn()
+            sync()
+        cuda = torch.autograd.DeviceType.CUDA
+        by_name, seen_spins = {}, 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != cuda or e.is_user_annotation():
+                continue
+            name = e.name().replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0]
+            name = name.removeprefix("void ").strip()[-40:]
+            if name.endswith("spin_kernel"):
+                seen_spins += 1
+                continue
+            ms, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + e.duration_ns() / 1e6, n + 1)
+        if not by_name:
+            return "device time not measured (no device events)"
+        k_ms = sum(ms for ms, _ in by_name.values())
+        top, (top_ms, top_n) = max(by_name.items(), key=lambda kv: kv[1][0])
+        return (f"device time {k_ms:.2f} ms of one profiled run "
+                f"({sum(n for _, n in by_name.values())} events, "
+                f"{spins - seen_spins} of {spins} leading spin kernels "
+                f"lost; most: {top} {top_ms:.2f} ms x{top_n}) / wall "
+                f"{1e3 * wall_s:.2f} ms = {100 * k_ms / (1e3 * wall_s):.1f} %")
+
+    def direct_s(g, D, block):
+        """Host wall s of one direct solve_block_status on the card."""
+        t0 = time.perf_counter()
+        solve_block_status(g, D, backend="cuda", device=dev, block=block)
+        sync()
+        return time.perf_counter() - t0
+
+    def clean(o, st, what):
+        """No service-level terminal row and no retry in a fault-free
+        run."""
+        bad = np.isin(o.status, (dse.FAULTED, dse.TIMED_OUT, dse.CANCELLED))
+        check(not bad.any(), f"{what}: {int(bad.sum())} FAULTED/TIMED_OUT/"
+              f"CANCELLED rows")
+        check(st["retries"] == 0 and st["faulted_rows"] == 0
+              and st["timed_out_rows"] == 0, f"{what}: retries or faulted "
+              f"rows in a fault-free run: {st}")
+
+    def served(base, D, block, mode="serial", shards=1, injector=None):
+        """One served sweep of D against the warm base run: a fresh
+        service (so nothing is memoized), manual mode; returns (outcome,
+        scheduler stats, wall s, service)."""
+        svc = SweepService(backend="cuda", device=dev, block=block,
+                           shards=shards, mode=mode, autostart=False,
+                           injector=injector)
+        svc.warm(base)
+        t0 = time.perf_counter()
+        o = svc.sweep(base, D)
+        sync()
+        return o, svc.stats()["scheduler"], time.perf_counter() - t0, svc
+
+    def two_tenants(bulk_design, svc):
+        """(a)'s traffic on svc's background thread: the bulk tenant's
+        matmul_stream K 1024, then, while it runs, the interactive
+        tenant's fig4_ex5 K 16 (engine fallback)."""
+        t0 = time.perf_counter()
+        hb = svc.submit(bulk_design, Da, tenant="bulk")
+        t1 = time.perf_counter()
+        hi = svc.submit(designs["fig4_ex5"][0], Di, tenant="interactive")
+        oi = hi.result(timeout=600)
+        t_i = time.perf_counter() - t1
+        ob = hb.result(timeout=600)
+        sync()
+        return ob, oi, time.perf_counter() - t0, t_i
+
+    Da, Di = Dm["matmul"], Dm["fig4_ex5"][:16]
+    service_launches = {}
+    with phase("15 sweep service on the card (SweepService, "
+               "backend='cuda')"):
+        # (a) two tenants at once, the background thread on
+        svc_a = SweepService(backend="cuda", device=dev, autostart=True)
+        for lib in _cuda.LIBS:
+            lib.reset_counts()
+        ob, oi, wall_b, wall_i = two_tenants(matmul_stream(), svc_a)
+        st = svc_a.stats()["scheduler"]
+        service_launches["a"] = _cuda.SPARSE.launches
+        check(service_launches["a"] > 0, "(a): kernel 1 not launched")
+        clean(ob, st, "(a) bulk")
+        clean(oi, st, "(a) interactive")
+        check(st["blocks_interactive"] >= 1, "(a): no interactive block")
+        entry = svc_a.cache.lookup(program_fingerprint(matmul_stream()))
+        check(entry is not None, "(a): the bulk design is not in the cache")
+        want_b = resimulate_batch(designs["matmul"][0], Da, backend="cuda",
+                                  device=dev)
+        want_i = resimulate_batch(designs["fig4_ex5"][0], Di,
+                                  backend="cuda", device=dev)
+        same_outcome(ob, want_b, "(a) bulk vs direct resimulate_batch")
+        same_outcome(oi, want_i, "(a) interactive vs direct "
+                     "resimulate_batch")
+        same_outcome(oi, resimulate_batch(designs["fig4_ex5"][0], Di,
+                                          backend="numpy"),
+                     "(a) interactive vs numpy")
+        same_status([x[:16] for x in (ob.status, ob.cycles, ob.violated)],
+                    solve_block_status(designs["matmul"][1], Da[:16],
+                                       backend="numpy"), "(a) bulk vs numpy")
+        check(int((oi.status == dse.VIOLATED).sum()) > 0 and st["fallbacks"]
+              > 0, "(a): the interactive rows took no engine fallback")
+        g_m = designs["matmul"][1]
+        log(f"  (a) bulk matmul_stream K=1024 block 128 (submitted as a "
+            f"Program: cold build {entry.build_s:.3f} s in the caller): "
+            f"{wall_b:.3f} s, {len(Da) / wall_b:.1f} configs/s "
+            f"({len(Da) / (wall_b - entry.build_s):.1f} without the "
+            f"build); direct solve_block_status at block 128 "
+            f"{direct_s(g_m, Da, 128):.3f} s, at block 1024 "
+            f"{direct_s(g_m, Da, len(Da)):.3f} s; kernel 1 launches "
+            f"{service_launches['a']} [{card}]")
+        log(f"  (a) interactive fig4_ex5 K=16 beside it: {wall_i:.3f} s "
+            f"from its submit, {len(Di) / wall_i:.1f} configs/s, "
+            f"{int((oi.status == dse.VIOLATED).sum())} rows VIOLATED "
+            f"(engine fallback); direct resimulate_batch "
+            f"{want_i.elapsed_s:.3f} s; scheduler {st} [{card}]")
+        # (d) the bulk rows again, reversed: all from the memo
+        before = dict(st)
+        _cuda.SPARSE.reset_counts()
+        t0 = time.perf_counter()
+        od = svc_a.submit(designs["matmul"][0], Da[::-1],
+                          tenant="bulk").result(timeout=600)
+        wall_d = time.perf_counter() - t0
+        st = svc_a.stats()["scheduler"]
+        svc_a.close()
+        memo = st["memo_hits"] - before["memo_hits"]
+        solved = st["rows_unique"] - before["rows_unique"]
+        check(memo == solved, f"(d): {solved - memo} rows were solved again")
+        if len(np.unique(Da, axis=0)) == len(Da):
+            check(memo == len(Da), f"(d): {memo} memo hits for {len(Da)} rows")
+        check(_cuda.SPARSE.launches == 0, f"(d): kernel 1 launched "
+              f"{_cuda.SPARSE.launches} times on memo hits")
+        clean(od, st, "(d)")
+        same_status((od.status, od.cycles, od.violated),
+                    [x[::-1] for x in (ob.status, ob.cycles, ob.violated)],
+                    "(d) reversed repeat")
+        check(od.reasons == ob.reasons[::-1], "(d): reasons differ")
+        log(f"  (d) (a)'s bulk rows again, reversed: {wall_d:.3f} s, "
+            f"{memo} memo hits of {len(Da)} rows, kernel 1 launches 0 "
+            f"[{card}]")
+        svc_p = SweepService(backend="cuda", device=dev, autostart=True)
+        svc_p.warm(entry.result)
+        svc_p.warm(designs["fig4_ex5"][0])
+        log(f"  (a) again on a fresh warm service: " + busy_of(
+            lambda: two_tenants(entry.result, svc_p), wall_b - entry.build_s)
+            + f" [{card}]")
+        svc_p.close()
+
+        # (b) shards: serial, two threads, two spawned processes
+        base_s, g_s = designs["msort8"]
+        Db = Dm["msort8"]
+        want = out["4 merge_sort_staged(8) K=1024"]
+        reasons = {}
+        for mode, shards in (("serial", 1), ("thread", 2), ("process", 2)):
+            _cuda.SPARSE.reset_counts()
+            o, st, wall, svc = served(base_s, Db, 256, mode, shards)
+            launches = {"this process": _cuda.SPARSE.launches}
+            if mode == "process":
+                check(svc.scheduler._pool._mp_context.get_start_method()
+                      == "spawn", "(b): the process pool does not spawn")
+                probes = [svc.scheduler._pool.submit(worker_sparse_launches,
+                                                     0.2) for _ in range(8)]
+                launches.update(f.result(timeout=300) for f in probes)
+                check(sum(launches.values()) > 0,
+                      f"(b) process: kernel 1 not launched: {launches}")
+            else:
+                check(launches["this process"] > 0,
+                      f"(b) {mode}: kernel 1 not launched")
+            svc.close()
+            service_launches[f"b {mode}"] = launches
+            clean(o, st, f"(b) {mode}")
+            same_status((o.status, o.cycles, o.violated), want,
+                        f"(b) {mode} vs direct")
+            reasons[mode] = o.reasons
+            log(f"  (b) merge_sort_staged(8) K=1024 block 256 {mode} x"
+                f"{shards}: {wall:.3f} s, {len(Db) / wall:.1f} configs/s; "
+                f"kernel 1 launches {launches} [{card}]")
+            if mode == "serial":
+                wall_serial = wall
+        check(reasons["serial"] == reasons["thread"] == reasons["process"],
+              "(b): reasons differ between modes")
+        log(f"  (b) direct solve_block_status at block 256 "
+            f"{direct_s(g_s, Db, 256):.3f} s, at block 1024 "
+            f"{direct_s(g_s, Db, len(Db)):.3f} s; serial served again: "
+            + busy_of(lambda: served(base_s, Db, 256)[3].close(),
+                      wall_serial) + f" [{card}]")
+
+        # (c) size: skynet_like K 4096 at block 128 and 4096
+        base_k, g_k = designs["skynet"]
+        Dc = Dm["skynet"]
+        for blk in (128, 4096):
+            _cuda.SPARSE.reset_counts()
+            sync()
+            alloc0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            o, st, wall, svc = served(base_k, Dc, blk)
+            peak = torch.cuda.max_memory_allocated() - alloc0
+            svc.close()
+            service_launches[f"c block {blk}"] = _cuda.SPARSE.launches
+            check(_cuda.SPARSE.launches > 0, f"(c) block {blk}: kernel 1 "
+                  f"not launched")
+            clean(o, st, f"(c) block {blk}")
+            same_status((o.status, o.cycles, o.violated),
+                        out["3 skynet_like K=4096"], f"(c) block {blk}")
+            log(f"  (c) skynet_like K=4096 block {blk}: {wall:.3f} s, "
+                f"{len(Dc) / wall:.1f} configs/s; {st['blocks']} blocks, "
+                f"kernel 1 launches {_cuda.SPARSE.launches}; peak device "
+                f"memory {peak / 2**30:.3f} GiB above the "
+                f"{alloc0 / 2**30:.3f} GiB held before; direct "
+                f"solve_block_status at block {blk} "
+                f"{direct_s(g_k, Dc, blk):.4f} s, at block 4096 "
+                f"{direct_s(g_k, Dc, len(Dc)):.4f} s; served again: "
+                + busy_of(lambda: served(base_k, Dc, blk)[3].close(), wall)
+                + f" [{card}]")
+
+        # (e) injected faults on (b)'s serial run: block 0's solve faults
+        # on all 3 attempts of the default retry policy; block 1's first
+        # attempt returns corrupt arrays and its retry succeeds
+        inj = FaultInjector(seed=0).arm("shard.fault", at=[0, 1, 2]) \
+            .arm("shard.corrupt", at=[3])
+        o, st, wall, svc = served(base_s, Db, 256, injector=inj)
+        svc.close()
+        check((o.status[:256] == dse.FAULTED).all()
+              and (o.cycles[:256] == -1).all(),
+              "(e): block 0's rows are not FAULTED with cycles -1")
+        same_status((o.status[256:], o.cycles[256:], o.violated[256:]),
+                    [x[256:] for x in want[:3]], "(e) other blocks")
+        check(st["retries"] == 3, f"(e): {st['retries']} retries, want 3")
+        check(st["faulted_rows"] == len(np.unique(Db[:256], axis=0)),
+              f"(e): {st['faulted_rows']} faulted rows")
+        log(f"  (e) injected faults: {int((o.status == dse.FAULTED).sum())} "
+            f"rows FAULTED (block 0), the other {len(Db) - 256} exact; "
+            f"retries {st['retries']}, injector {inj.stats()}, quarantine "
+            f"{svc.quarantine.stats()} [{card}]")
+    for k in kernels:
+        if k["name"] == "maxplus_sparse_fixpoint":
+            k["launches_service"] = service_launches
 
     if FAILURES:
         log(f"FAILED phases: {FAILURES}")

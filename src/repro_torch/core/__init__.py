@@ -5,7 +5,8 @@ Mirrors ``repro.core``'s public names for what is ported so far::
 
     from repro_torch.core import (Program, Read, Write, ReadNB, WriteNB,
                                   Empty, Full, Delay, Emit, simulate,
-                                  resimulate, resimulate_batch)
+                                  resimulate, resimulate_batch,
+                                  program_fingerprint)
 
 The simulator is host logic (plain Python and numpy, following the
 reference); the batched depth re-solve (``resimulate_batch``) runs its
@@ -26,6 +27,7 @@ from .incremental import (CompiledGraph, IncrementalOutcome,
                           verify_times)
 from .program import (Delay, Emit, Empty, Fifo, Full, Module, Op, Program,
                       Read, ReadNB, SimResult, Write, WriteNB)
+from .trace import module_content_hash, program_fingerprint
 
 __all__ = [
     "OmniSim", "simulate", "resimulate", "resimulate_batch",
@@ -37,4 +39,5 @@ __all__ = [
     "longest_path_chains_batched", "level_schedule", "to_dense_blocks",
     "ChainFlatArrays", "export_chain_flat", "Constraint", "DeadlockError",
     "Query", "RequestType", "NodeKind", "SimStats", "UnsupportedDesignError",
+    "program_fingerprint", "module_content_hash",
 ]

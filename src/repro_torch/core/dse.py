@@ -44,6 +44,7 @@ from __future__ import annotations
 import copy
 import threading
 import time as _time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -133,6 +134,17 @@ class _BatchArrays:
     sparse: object = None          # lazy ChainFlatArrays (sparse lane)
     on_device: Dict[tuple, object] = field(default_factory=dict)
     # ^ (what, device) -> tensors of this view already moved to a device
+
+    def __getstate__(self):
+        # device tensors stay in their process: a pickled view (a process
+        # shard's graph) moves its arrays again on the other side
+        state = dict(self.__dict__)
+        del state["on_device"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.on_device = {}
 
 
 def _chain_of(starts: np.ndarray, col: int) -> int:
@@ -645,15 +657,19 @@ def status_reason(cache: CompiledGraph, status_k: int, violated_k: int,
 
 def materialize_block(result: SimResult, Du: np.ndarray,
                       status_u: np.ndarray, cycles_u: np.ndarray,
-                      violated_u: np.ndarray, fallback_mask: np.ndarray):
-    """Post-solve verdict assembly of :func:`resimulate_batch`.
+                      violated_u: np.ndarray, fallback_mask: np.ndarray,
+                      engine_label: str = "omnisim-batch", lock=None):
+    """Post-solve verdict assembly shared by :func:`resimulate_batch` and
+    the sweep scheduler (``repro_torch/sweep/scheduler.py``).
 
     For each unique depth row: the human-readable reason string, a
     lightweight REUSED :class:`SimResult` shell carrying the solved cycle
-    count, or — where ``fallback_mask`` allows — the exact fallback full
-    re-simulation (``cycles_u`` is updated in place with its result).
-    The fallback holds the program's mutation lock: it temporarily sets
-    the Program's FIFO depths.  Returns ``(results_u, reasons_u)``.
+    count (labelled ``engine_label``), or — where ``fallback_mask`` allows
+    — the exact fallback full re-simulation (``cycles_u`` is updated in
+    place with its result).  The fallback holds the program's mutation
+    lock, and ``lock`` too where given: it temporarily sets the Program's
+    FIFO depths.  The sweep scheduler passes the design's entry lock;
+    direct library calls need none.  Returns ``(results_u, reasons_u)``.
     """
     engine: OmniSim = result.graph
     cache = compile_graph(engine)
@@ -671,12 +687,13 @@ def materialize_block(result: SimResult, Du: np.ndarray,
             # base run (the graph stays shared by design: it IS the cache)
             results_u[u] = SimResult(
                 program=result.program, outputs=dict(result.outputs),
-                cycles=int(cycles_u[u]), engine="omnisim-batch",
+                cycles=int(cycles_u[u]), engine=engine_label,
                 stats=copy.copy(result.stats), graph=engine,
                 constraints=list(result.constraints),
                 depths=tuple(int(d) for d in Du[u]))
         elif fallback_mask[u] and status_u[u] in FALLBACK_STATUSES:
-            with program_mutation_lock(engine.program):
+            with (lock if lock is not None else nullcontext()), \
+                    program_mutation_lock(engine.program):
                 saved = engine.program.depths()
                 try:
                     full = simulate(engine.program,

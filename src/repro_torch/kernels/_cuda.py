@@ -56,10 +56,10 @@ def _nvcc() -> str:
 class CudaLib:
     """One kernel source, its shared library and its launch counters.
 
-    ``launches`` is a plain integer that the kernel's Python wrapper
-    raises by one each time it launches the kernel, and nowhere else.
-    A source with more than one kernel route also counts each launch
-    under its route's name in ``route_launches``.
+    ``launches`` is an integer that the kernel's Python wrapper raises by
+    one (:meth:`count`) each time it launches the kernel, and nowhere
+    else.  A source with more than one kernel route also counts each
+    launch under its route's name in ``route_launches``.
     """
 
     def __init__(self, name: str, signatures: Dict[str, Sequence],
@@ -74,8 +74,17 @@ class CudaLib:
 
     def reset_counts(self) -> None:
         """Set every launch counter to 0."""
-        self.launches = 0
-        self.route_launches = dict.fromkeys(self.route_launches, 0)
+        with self._lock:
+            self.launches = 0
+            self.route_launches = dict.fromkeys(self.route_launches, 0)
+
+    def count(self, route=None) -> None:
+        """Count one launch (and one of ``route``): under the lock, so
+        wrappers called from several threads lose no count."""
+        with self._lock:
+            self.launches += 1
+            if route is not None:
+                self.route_launches[route] += 1
 
     # -- build -----------------------------------------------------------
     def target(self) -> Path:

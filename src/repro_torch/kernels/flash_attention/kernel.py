@@ -86,6 +86,5 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    v.data_ptr(), out.data_ptr(), BH, S, hd, group_size,
                    int(bool(causal)), int(window), float(softcap), code,
                    stream_of(q))
-        FLASH.launches += 1
-        FLASH.route_launches[route] += 1
+        FLASH.count(route)
     return out

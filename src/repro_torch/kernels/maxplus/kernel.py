@@ -85,5 +85,5 @@ def maxplus_sweep(a: torch.Tensor, t: torch.Tensor, base: torch.Tensor,
         DENSE.call("maxplus_dense_sweep", a.data_ptr(), t.data_ptr(),
                    base.data_ptr(), stride, out.data_ptr(), N, K,
                    flag.data_ptr(), stream_of(a))
-        DENSE.launches += 1
+        DENSE.count()
     return out

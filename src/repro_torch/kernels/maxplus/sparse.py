@@ -139,7 +139,7 @@ def _solve_chains_cuda(arr: ChainFlatArrays, depth: torch.Tensor):
                 arr.war_roff.data_ptr(), arr.war_rcols.data_ptr(), m,
                 depth_t.data_ptr(), K, int(arr.bound), diverged.data_ptr(),
                 changed.data_ptr(), any_changed.data_ptr(), stream)
-            SPARSE.launches += 1
+            SPARSE.count()
             rounds += 1
         if not int(any_changed.item()):
             break

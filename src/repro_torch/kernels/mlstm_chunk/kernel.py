@@ -78,5 +78,5 @@ def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    v.data_ptr(), ig.data_ptr(), la.data_ptr(),
                    out.data_ptr(), scratch.data_ptr(), nbytes.value, BH, S,
                    P, Pv, chunk, stream_of(q))
-        MLSTM.launches += 1
+        MLSTM.count()
     return out

@@ -167,6 +167,80 @@ def test_war_cycle_rows_are_cycles_on_the_card(dev):
         assert (out.status[2:] == tdse.REUSED).all(), lane
 
 
+# ------------------------------------------------------------ sweep service
+def _worker_sparse_launches(pause):
+    """(pid, kernel 1's launches) in a process-shard worker; the pause
+    lets every worker of the pool take one of the probes."""
+    import os
+    import time
+
+    time.sleep(pause)
+    return os.getpid(), _cuda.SPARSE.launches
+
+
+@pytest.mark.parametrize("mode,shards", [("serial", 1), ("thread", 2),
+                                         ("process", 2)])
+def test_sweep_service_on_the_card_matches_numpy(dev, mode, shards):
+    """The service on ``backend="cuda"`` (its default) serves every row
+    bit for bit as the host oracle does, with no faulted row, and its
+    shards launched kernel 1 (process workers count in their own
+    processes)."""
+    from repro_torch.sweep import SweepService
+
+    rng = np.random.default_rng(0)
+    designs = [(lambda: merge_sort_staged(5), 8), (lambda: fig4_ex5(n=96), 8)]
+    _cuda.SPARSE.reset_counts()
+    with SweepService(block=32, shards=shards, mode=mode,
+                      min_shard_rows=1, autostart=mode != "serial") as svc:
+        for build, hi in designs:
+            base = simulate(build())
+            D = rng.integers(1, hi + 1, size=(96, len(base.depths)))
+            want = resimulate_batch(base, D, backend="numpy")
+            got = svc.sweep(build(), D)
+            assert (want.status == got.status).all()
+            assert (want.cycles == got.cycles).all()
+            assert (want.violated == got.violated).all()
+            assert want.reasons == got.reasons
+            for a, b in zip(want.results, got.results):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert (a.cycles, a.outputs, a.deadlock) == \
+                        (b.cycles, b.outputs, b.deadlock)
+        st = svc.stats()["scheduler"]
+        if mode == "process":
+            assert svc.scheduler._pool._mp_context.get_start_method() \
+                == "spawn"
+            probes = [svc.scheduler._pool.submit(_worker_sparse_launches,
+                                                 0.2) for _ in range(8)]
+            counts = dict(f.result(timeout=300) for f in probes)
+        else:
+            counts = {"this process": _cuda.SPARSE.launches}
+    assert st["faulted_rows"] == st["timed_out_rows"] == st["retries"] == 0
+    assert sum(counts.values()) > 0, counts
+
+
+def test_sweep_service_builds_the_kernel_library_at_construction(
+        dev, tmp_path, monkeypatch):
+    from repro_torch.sweep import SweepService
+
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
+    base = simulate(merge_sort_staged(5))
+    D = np.random.default_rng(1).integers(1, 9, size=(16, len(base.depths)))
+    want = resimulate_batch(base, D, backend="numpy")
+    for lib, backend in ((_cuda.SPARSE, "cuda"),
+                         (_cuda.DENSE, "cuda_dense")):
+        monkeypatch.setattr(lib, "_lib", None)
+        assert not lib.target().exists()
+        with SweepService(backend=backend, autostart=False) as svc:
+            assert lib.target().exists() and lib._lib is not None
+            lib.reset_counts()
+            got = svc.sweep(base, D)
+            assert lib.launches > 0, backend
+            assert svc.stats()["scheduler"]["faulted_rows"] == 0
+        assert (want.status == got.status).all()
+        assert (want.cycles == got.cycles).all()
+
+
 # ---------------------------------------------------------- flash attention
 def _flash_inputs(dev, dtype, B, S, H, Hkv, hd, seed=0):
     rng = np.random.default_rng(seed)
