@@ -19,7 +19,10 @@ Phases, each printing its own line:
   3-6. the simulator's main path — simulate a design, compile its graph,
      re-solve it under a block of depth configs — through the entry points
      a user calls (``solve_block_status`` / ``resimulate_batch`` with
-     ``backend="cuda"`` or ``"cuda_dense"``):
+     ``backend="cuda"`` or ``"cuda_dense"``).  ``simulate`` takes
+     compiled replay (``engine == "omnisim-trace"``, required) on every
+     blocking design, as the reference does; ``fig4_ex5`` takes the
+     generator engine (the reference's hybrid replay is not ported yet):
        3. ``skynet_like()`` at its defaults (102 452 nodes), K = 4096;
        4. ``matmul_stream()`` and ``merge_sort_staged(8)``, K = 1024;
        5. ``fig4_ex5()`` at K = 128 with the engine fallback, and the
@@ -119,8 +122,30 @@ Phases, each printing its own line:
      served sweep's wall time and configs/s, beside the direct
      ``solve_block_status`` on the same rows at the same block and at
      block = K; the cache's cold build; one profiled re-run's device time
-     over the wall time; peak device memory in (c).  The run's total time
-     is printed last.
+     over the wall time; peak device memory in (c);
+  16. initial simulation on the card's machine:
+       (a) compiled replay against the port's generator engine on
+           ``skynet_like()``, ``matmul_stream()``, ``merge_sort_staged(8)``
+           and ``flowgnn_like(n_nodes=1024, layers=8)``: cycles, outputs,
+           deadlock, graph size, node times as multisets, every FIFO
+           table; both wall times (median of 3 after a warm run), the
+           periodized trace's ``n_ops`` and ``n_stored``, the sweeps;
+       (b) the trace-built graphs of phases 3 and 4 against the generator-
+           built ones through kernel 1 (``solve_block_status``,
+           ``backend="cuda"``, phases 3-4's rows): status, cycles and
+           violated counts bit-identical, and against ``backend="numpy"``
+           on a prefix; kernel 1's ms per solve and per round from each;
+       (c) ``finalize_times`` (kernel 2) on ``merge_sort_staged()``'s
+           ``TraceSimGraph``, equal to its own ``times()``;
+       (d) the oracles on every design of ``designs/paper.py``, the small
+           Type A designs of the reference's ``tests/test_trace.py`` and
+           the two AXI designs: ``simulate`` against ``simulate_rtl``,
+           ``LightningSim`` (it refuses every design but the Type A ones),
+           C-sim against Table 3's values, ``classify``; and LightningSim's
+           wall time against compiled replay's on the Type A designs at
+           their defaults (the paper's Table 5, on this host).
+     Kernel 1's and kernel 2's launch counts are zeroed just before and
+     read just after (b) and (c).  The run's total time is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
 float32 comparisons measure the kernels, not TF32.  The last two lines are
@@ -132,6 +157,7 @@ weights from ``torch.Generator().manual_seed(0)``.
 """
 import concurrent.futures
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -273,13 +299,17 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.core import (Emit, Program, Read, Write, compile_graph,
+    from repro_torch.core import (Emit, LightningSim, Program, Read,
+                                  TraceSimGraph, UnsupportedDesignError,
+                                  Write, classify, compile_graph, csim,
                                   program_fingerprint, resimulate_batch,
-                                  simulate, solve_block_status)
+                                  simulate, simulate_rtl, solve_block_status)
     from repro_torch.core import dse
+    from repro_torch.core.axi import axi_master_design, axi_prefetch_design
     from repro_torch.core.graph import export_chain_flat, longest_path_numpy
-    from repro_torch.designs.paper import fig4_ex5
-    from repro_torch.designs.typea import (matmul_stream, merge_sort_staged,
+    from repro_torch.designs.paper import PAPER_DESIGNS, fig4_ex5
+    from repro_torch.designs.typea import (TYPEA_DESIGNS, flowgnn_like,
+                                           matmul_stream, merge_sort_staged,
                                            skynet_like)
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _cuda
@@ -449,21 +479,28 @@ def main():
 
     # ------------------------------------------------ main path (3 - 6)
     designs = {}
+    design_fns = {"skynet": skynet_like, "matmul": matmul_stream,
+                "msort8": lambda: merge_sort_staged(8), "fig4_ex5": fig4_ex5,
+                "msort6": merge_sort_staged}
+    # the initial simulation each design takes, as in the reference: the
+    # blocking designs compiled replay; fig4_ex5 the generator engine,
+    # where the reference takes its hybrid replay (not ported yet)
+    want_engine = {"skynet": "omnisim-trace", "matmul": "omnisim-trace",
+                   "msort8": "omnisim-trace", "fig4_ex5": "omnisim",
+                   "msort6": "omnisim-trace"}
     for lib in _cuda.LIBS:
         lib.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     with phase("main path: simulate + compile"):
-        for key, build in (("skynet", skynet_like),
-                           ("matmul", matmul_stream),
-                           ("msort8", lambda: merge_sort_staged(8)),
-                           ("fig4_ex5", fig4_ex5),
-                           ("msort6", merge_sort_staged)):
+        for key, build in design_fns.items():
             t0 = time.perf_counter()
             res = simulate(build())
             g = compile_graph(res.graph)
             designs[key] = (res, g)
-            log(f"  {key}: n={g.n} fifos={len(g.fifos)} "
+            log(f"  {key}: engine {res.engine} n={g.n} fifos={len(g.fifos)} "
                 f"cycles={res.cycles} ({time.perf_counter() - t0:.2f} s)")
+            check(res.engine == want_engine[key], f"{key}: engine "
+                  f"{res.engine}, want {want_engine[key]}")
 
     def pingpong():
         prog = Program("burst_pingpong", declared_type="A")
@@ -585,6 +622,8 @@ def main():
         same_outcome(o, resimulate_batch(designs["fig4_ex5"][0],
                                          Dm["fig4_ex5"], backend="numpy"),
                      "fig4_ex5")
+        check(pp_res.engine == "omnisim-trace",
+              f"ping-pong base run took {pp_res.engine}")
         p = out["5 burst_pingpong K=6"]
         check(p.status[:2].tolist() == [dse.CYCLE] * 2,
               f"ping-pong rows 0-1 not CYCLE: {p.status}")
@@ -592,7 +631,7 @@ def main():
                                          backend="numpy"), "pingpong")
         log(f"  fig4_ex5 status counts "
             f"{np.bincount(o.status, minlength=4).tolist()}; ping-pong "
-            f"{p.status.tolist()}")
+            f"(base run {pp_res.engine}) {p.status.tolist()}")
 
     with phase("6 dense lane vs numpy; finalize_times vs numpy"):
         o = out["6 merge_sort_staged() K=64 dense"]
@@ -626,6 +665,7 @@ def main():
 
         # kernel 1 at the shapes of phases 3 and 4
         by_shape = []
+        k1_rows = {}
         for key, K_label in (("matmul", "matmul_stream K=1024"),
                              ("msort8", "merge_sort_staged(8) K=1024"),
                              ("skynet", "skynet_like K=4096")):
@@ -658,6 +698,7 @@ def main():
                 "us_per_round": 1e3 * k_ms / launched,
                 "bound_us_per_round": 1e3 * bound_ms / rounds,
                 "max_abs_err": err})
+            k1_rows[key] = by_shape[-1]
             log(f"  kernel 1 {by_shape[-1]} [{card}]")
             if key == "matmul":
                 log(f"  device busy, one matmul_stream solve: "
@@ -1406,6 +1447,24 @@ def main():
         sync()
         return ob, oi, time.perf_counter() - t0, t_i
 
+    # full (generation 2) garbage collections, by host clock: one pass
+    # over the objects the earlier phases leave takes on the order of a
+    # second, and lands in whichever timed window triggers it
+    full_gc = []
+
+    def on_gc(stage, info):
+        if info["generation"] == 2:
+            if stage == "start":
+                full_gc.append([time.perf_counter(), None])
+            elif full_gc:
+                full_gc[-1][1] = time.perf_counter()
+
+    def full_gc_since(t0):
+        """(count, seconds) of the full collections started after t0."""
+        spans = [b - a for a, b in full_gc if a >= t0 and b is not None]
+        return len(spans), sum(spans)
+
+    gc.callbacks.append(on_gc)
     Da, Di = Dm["matmul"], Dm["fig4_ex5"][:16]
     service_launches = {}
     with phase("15 sweep service on the card (SweepService, "
@@ -1414,7 +1473,9 @@ def main():
         svc_a = SweepService(backend="cuda", device=dev, autostart=True)
         for lib in _cuda.LIBS:
             lib.reset_counts()
+        t_a = time.perf_counter()
         ob, oi, wall_b, wall_i = two_tenants(matmul_stream(), svc_a)
+        gc_a = full_gc_since(t_a)
         st = svc_a.stats()["scheduler"]
         service_launches["a"] = _cuda.SPARSE.launches
         check(service_launches["a"] > 0, "(a): kernel 1 not launched")
@@ -1425,8 +1486,10 @@ def main():
         check(entry is not None, "(a): the bulk design is not in the cache")
         want_b = resimulate_batch(designs["matmul"][0], Da, backend="cuda",
                                   device=dev)
+        t_d = time.perf_counter()
         want_i = resimulate_batch(designs["fig4_ex5"][0], Di,
                                   backend="cuda", device=dev)
+        gc_d = full_gc_since(t_d)
         same_outcome(ob, want_b, "(a) bulk vs direct resimulate_batch")
         same_outcome(oi, want_i, "(a) interactive vs direct "
                      "resimulate_batch")
@@ -1446,12 +1509,15 @@ def main():
             f"build); direct solve_block_status at block 128 "
             f"{direct_s(g_m, Da, 128):.3f} s, at block 1024 "
             f"{direct_s(g_m, Da, len(Da)):.3f} s; kernel 1 launches "
-            f"{service_launches['a']} [{card}]")
+            f"{service_launches['a']}; full GC passes in (a): {gc_a[0]}, "
+            f"{gc_a[1]:.3f} s [{card}]")
         log(f"  (a) interactive fig4_ex5 K=16 beside it: {wall_i:.3f} s "
             f"from its submit, {len(Di) / wall_i:.1f} configs/s, "
             f"{int((oi.status == dse.VIOLATED).sum())} rows VIOLATED "
             f"(engine fallback); direct resimulate_batch "
-            f"{want_i.elapsed_s:.3f} s; scheduler {st} [{card}]")
+            f"{want_i.elapsed_s:.3f} s (full GC passes in it: {gc_d[0]}, "
+            f"{gc_d[1]:.3f} s); scheduler {st} [{card}]")
+        gc.callbacks.remove(on_gc)
         # (d) the bulk rows again, reversed: all from the memo
         before = dict(st)
         _cuda.SPARSE.reset_counts()
@@ -1570,9 +1636,236 @@ def main():
             f"rows FAULTED (block 0), the other {len(Db) - 256} exact; "
             f"retries {st['retries']}, injector {inj.stats()}, quarantine "
             f"{svc.quarantine.stats()} [{card}]")
+    # --------------------------------------------------------------- 16
+    def wall(fn):
+        """(median host s of 3 runs of fn after one warm run, last
+        result)."""
+        res = fn()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = fn()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls), res
+
+    def same_sim(a, b, what):
+        """Compiled replay equals the generator engine: results, graph
+        size, node times as multisets (the two number nodes differently)
+        and every FIFO table's sorted times and leftover values."""
+        check((a.cycles, a.outputs, a.deadlock, a.depths)
+              == (b.cycles, b.outputs, b.deadlock, b.depths),
+              f"{what}: results differ")
+        check((a.stats.nodes, a.stats.edges) == (b.stats.nodes,
+                                                 b.stats.edges),
+              f"{what}: graph size differs")
+        check(np.array_equal(np.sort(a.graph.graph.times()),
+                             np.sort(b.graph.graph.times())),
+              f"{what}: node times differ")
+        for ta, tb in zip(a.graph.fifos, b.graph.fifos):
+            for f in ("write_times", "read_times"):
+                check(np.array_equal(np.sort(getattr(ta, f)),
+                                     np.sort(getattr(tb, f))),
+                      f"{what}: FIFO {ta.name} {f} differ")
+            check(list(ta.values) == list(tb.values),
+                  f"{what}: FIFO {ta.name} leftovers differ")
+
+    with phase("16 (a) compiled replay vs the generator engine"):
+        for key, build in (("skynet_like()", skynet_like),
+                           ("matmul_stream()", matmul_stream),
+                           ("merge_sort_staged(8)",
+                            lambda: merge_sort_staged(8)),
+                           ("flowgnn_like(n_nodes=1024, layers=8)",
+                            lambda: flowgnn_like(n_nodes=1024, layers=8))):
+            s_tr, r_tr = wall(lambda: simulate(build()))
+            s_gen, r_gen = wall(lambda: simulate(build(), trace="never"))
+            check(r_tr.engine == "omnisim-trace" and r_gen.engine
+                  == "omnisim", f"{key}: engines {r_tr.engine}, "
+                  f"{r_gen.engine}")
+            same_sim(r_tr, r_gen, key)
+            rec = r_tr.graph._trace
+            log(f"  {key}: compiled replay {s_tr:.4f} s, generator engine "
+                f"{s_gen:.4f} s (medians of 3 after a warm run), "
+                f"{s_gen / s_tr:.2f}x; {r_tr.stats.nodes} nodes, n_ops "
+                f"{rec.n_ops} stored as {rec.n_stored} rows after "
+                f"periodization, {r_tr.stats.quiescence_rounds} sweeps "
+                f"(quiescence_rounds; the generator engine's "
+                f"{r_gen.stats.quiescence_rounds}), cycles {r_tr.cycles} "
+                f"[{card}]")
+
+    trace_launches = {}
+    with phase("16 (b) trace-built graphs through kernel 1"):
+        for key, name, n_np in (("skynet", "3 skynet_like K=4096", 64),
+                                ("matmul", "4 matmul_stream K=1024", 8),
+                                ("msort8", "4 merge_sort_staged(8) K=1024",
+                                 64)):
+            g_tr, D = designs[key][1], Dm[key]
+            base_gen = simulate(design_fns[key](), trace="never")
+            g_gen = compile_graph(base_gen.graph)
+            check(g_tr.n == g_gen.n, f"{key}: node counts differ")
+            _cuda.SPARSE.reset_counts()
+            st_tr = solve_block_status(g_tr, D, backend="cuda", device=dev)
+            st_gen = solve_block_status(g_gen, D, backend="cuda",
+                                        device=dev)
+            sync()
+            trace_launches[key] = _cuda.SPARSE.launches
+            check(trace_launches[key] > 0, f"{key}: kernel 1 not launched")
+            same_status(st_tr, st_gen, f"{key} trace vs generator graph")
+            same_status(st_tr, out[name], f"{key} vs phase 3/4")
+            same_status([x[:n_np] for x in st_tr[:3]],
+                        solve_block_status(g_gen, D[:n_np],
+                                           backend="numpy"),
+                        f"{key} vs numpy")
+            check(st_tr[3] == st_gen[3], f"{key}: rounds launched differ: "
+                  f"{st_tr[3]} vs {st_gen[3]}")
+            row = k1_rows[key]
+            per = {}
+            for src, g in (("trace", g_tr), ("generator", g_gen)):
+                ba = dse._batch_arrays(g)
+                Da = D[~(D < ba.fifo_need[None, :]).any(axis=1)]
+                arr = dse._sparse_arrays(ba, dev)
+                Dt = torch.from_numpy(np.minimum(Da, 1 << 30)
+                                      .astype(np.int32)).to(dev)
+                got = {}
+                ms = cuda_time(lambda: got.__setitem__(
+                    "k", sparse.solve_chains(arr, Dt)), 3)
+                per[src] = (ms, got["k"][2])
+            (ms_t, l_t), (ms_g, l_g) = per["trace"], per["generator"]
+            check(l_t == l_g, f"{key}: kernel rounds differ {l_t} vs {l_g}")
+            log(f"  {key}: kernel 1 per solve {ms_t:.3f} ms from the trace-"
+                f"built graph, {ms_g:.3f} ms from the generator-built "
+                f"({ms_t / ms_g:.3f}x); per round {1e3 * ms_t / l_t:.2f} "
+                f"against {1e3 * ms_g / l_g:.2f} us ({l_t} rounds "
+                f"launched, {row['rounds']} needed); bound "
+                f"{row['bound_ms']:.3f} ms, "
+                f"{row['bound_us_per_round']:.2f} us a round (phase 7); "
+                f"status, cycles, violated bit-identical; kernel 1 "
+                f"launches {trace_launches[key]} [{card}]")
+
+    trace_dense = {}
+    with phase("16 (c) the trace graph through kernel 2"):
+        sg = designs["msort6"][0].graph.graph
+        check(isinstance(sg, TraceSimGraph), f"merge_sort_staged() graph "
+              f"is {type(sg).__name__}")
+        _cuda.DENSE.reset_counts()
+        ft = ops.finalize_times(sg, device=dev)
+        sync()
+        trace_dense["launches"] = _cuda.DENSE.launches
+        check(trace_dense["launches"] > 0, "kernel 2 not launched")
+        check(np.array_equal(ft.cpu().numpy(), sg.times()),
+              "finalize_times differs from the trace graph's times()")
+        trace_dense["ms"] = cuda_time(
+            lambda: ops.finalize_times(sg, device=dev), 3)
+        log(f"  merge_sort_staged(): finalize_times on the TraceSimGraph "
+            f"(n={sg.n_nodes}) equals its times(); kernel 2 launches "
+            f"{trace_dense['launches']}; {trace_dense['ms']:.3f} ms a call "
+            f"(CUDA events around the call, host CSR and densify "
+            f"included) [{card}]")
+
+    typea_small = {
+        "producer_consumer": lambda: TYPEA_DESIGNS["producer_consumer"](
+            n=48),
+        "fir_filter": lambda: TYPEA_DESIGNS["fir_filter"](n=64),
+        "window_conv": lambda: TYPEA_DESIGNS["window_conv"](rows=12,
+                                                            cols=12),
+        "matmul_stream": lambda: TYPEA_DESIGNS["matmul_stream"](m=6, k=6,
+                                                                n=6),
+        "sqrt_pipe": lambda: TYPEA_DESIGNS["sqrt_pipe"](n=48),
+        "parallel_loops": lambda: TYPEA_DESIGNS["parallel_loops"](n=48),
+        "nested_loops": lambda: TYPEA_DESIGNS["nested_loops"](outer=8,
+                                                              inner=8),
+        "accumulators": lambda: TYPEA_DESIGNS["accumulators"](n=48),
+        "vector_add_stream": lambda: TYPEA_DESIGNS["vector_add_stream"](
+            n=96),
+        "merge_sort_staged": lambda: TYPEA_DESIGNS["merge_sort_staged"](
+            log_n=5),
+        "huffman_pipe": lambda: TYPEA_DESIGNS["huffman_pipe"](n=64),
+        "flowgnn_like": lambda: TYPEA_DESIGNS["flowgnn_like"](n_nodes=32),
+        "skynet_like": lambda: TYPEA_DESIGNS["skynet_like"](items=48,
+                                                            depth=6),
+        "latency_pipe": lambda: TYPEA_DESIGNS["latency_pipe"](items=24,
+                                                              ii=16),
+    }
+    with phase("16 (d) the oracles: RTL, LightningSim, C-sim, taxonomy"):
+        cases = {**{f"paper/{k}": v for k, v in PAPER_DESIGNS.items()},
+                 **{f"typea/{k}": v for k, v in typea_small.items()},
+                 "axi/axi_master_design": axi_master_design,
+                 "axi/axi_prefetch_design": axi_prefetch_design}
+        kinds = {}
+        for key, build in sorted(cases.items()):
+            sim, rtl = simulate(build()), simulate_rtl(build())
+            check(sim.deadlock == rtl.deadlock, f"{key}: deadlock verdicts "
+                  f"differ from the RTL oracle")
+            if not sim.deadlock:
+                check(sim.outputs == rtl.outputs and sim.cycles
+                      == rtl.cycles, f"{key}: differs from the RTL oracle")
+            try:
+                ls = LightningSim(build()).run()
+            except UnsupportedDesignError:
+                ls = None
+            # the reference's LightningSim refuses every design but the
+            # Type A ones (cyclic or non-blocking: tests/test_designs.py,
+            # tests/test_axi.py)
+            check((ls is None) == (not key.startswith("typea/")),
+                  f"{key}: LightningSim {'refused' if ls is None else 'ran'}")
+            if ls is not None:
+                check(ls.outputs == sim.outputs and ls.cycles == sim.cycles,
+                      f"{key}: LightningSim differs")
+            c = classify(build(), sim)
+            kinds[key] = c.dtype
+            if key.startswith("typea/"):
+                check(c.dtype == "A" and sim.engine == "omnisim-trace",
+                      f"{key}: {c}, engine {sim.engine}")
+        check(kinds["paper/multicore"] == "C" and kinds["paper/fig4_ex3"]
+              == "B" and kinds["axi/axi_master_design"] == "B"
+              and kinds["axi/axi_prefetch_design"] == "C",
+              f"classifications differ from the reference tests': {kinds}")
+        # Table 3 (tests/test_designs.py:37-66): the simulator's pinned
+        # outputs, and C-sim's crashes and wrong results
+        P = PAPER_DESIGNS
+        check(simulate(P["fig4_ex2"]()).outputs["sum_out"] == 2051325
+              and simulate(P["fig4_ex3"]()).outputs["sum"] == 4098600
+              and simulate(P["deadlock"]()).deadlock, "Table 3 outputs")
+        r = simulate(P["fig2_timer"]())
+        check(r.outputs["timer_cycles"] == 6075
+              and r.outputs["sink_sum"] == 2051325, "Table 3 timer")
+        for name in ("fig4_ex2", "fig4_ex4a_d", "fig4_ex4b_d"):
+            check(csim(P[name]()).outputs.get("__crash__")
+                  == "@E Simulation failed: SIGSEGV.", f"csim {name}")
+        r = csim(P["fig4_ex3"]())
+        check(r.outputs["sum"] == 0 and sum(
+            "read while empty" in w for w in r.outputs["__warnings__"])
+            == 2025 and any("leftover" in w
+                            for w in r.outputs["__warnings__"]),
+            "csim fig4_ex3")
+        check(csim(P["fig4_ex4a"]()).outputs["sum_out"] == 2051325
+              and csim(P["fig4_ex4b"]()).outputs == {"sum_out": 2051325,
+                                                     "Dropped": 0}
+              and csim(P["fig2_timer"]()).outputs["timer_cycles"] == 0,
+              "csim Table 3 values")
+        log(f"  {len(cases)} designs: simulate equals simulate_rtl "
+            f"(cycles, outputs, deadlock), LightningSim refuses the "
+            f"{sum(not k.startswith('typea/') for k in cases)} non-Type-A "
+            f"ones, C-sim gives Table 3's values; types {kinds}")
+        # the analogue of the paper's Table 5 on this host: LightningSim
+        # (two phases, interpreted) against compiled replay, Type A
+        # designs at their defaults
+        rows5 = []
+        for name, build in sorted(TYPEA_DESIGNS.items()):
+            s_ls, ls = wall(lambda: LightningSim(build()).run())
+            s_tr, tr = wall(lambda: simulate(build()))
+            check(ls.cycles == tr.cycles and ls.outputs == tr.outputs,
+                  f"{name}: LightningSim differs at its defaults")
+            rows5.append(f"{name} {s_ls * 1e3:.2f}/{s_tr * 1e3:.2f} ms "
+                         f"({s_ls / s_tr:.1f}x)")
+        log(f"  LightningSim / compiled replay, medians of 3 after a warm "
+            f"run: {'; '.join(rows5)} [{card}]")
+
     for k in kernels:
         if k["name"] == "maxplus_sparse_fixpoint":
             k["launches_service"] = service_launches
+            k["launches_trace_resolves"] = trace_launches
+        if k["name"] == "maxplus_dense_sweep":
+            k["launches_trace_finalize"] = trace_dense.get("launches")
 
     if FAILURES:
         log(f"FAILED phases: {FAILURES}")

@@ -5,13 +5,18 @@ Mirrors ``repro.core``'s public names for what is ported so far::
 
     from repro_torch.core import (Program, Read, Write, ReadNB, WriteNB,
                                   Empty, Full, Delay, Emit, simulate,
-                                  resimulate, resimulate_batch,
+                                  simulate_rtl, simulate_traced,
+                                  LightningSim, csim, resimulate,
+                                  resimulate_batch, classify,
                                   program_fingerprint)
 
 The simulator is host logic (plain Python and numpy, following the
-reference); the batched depth re-solve (``resimulate_batch``) runs its
-max-plus fixpoint on the card through hand-written CUDA kernels
-(``repro_torch.kernels.maxplus``).
+reference): the generator engine, trace-compiled replay, the RTL oracle,
+the LightningSim baseline, C-sim and the taxonomy.  The batched depth
+re-solve (``resimulate_batch``) runs its max-plus fixpoint on the card
+through hand-written CUDA kernels (``repro_torch.kernels.maxplus``).  Not
+ported yet: the hybrid replay (``HybridCache``, ``HybridSim``,
+``simulate_hybrid``; ROADMAP queue 1, item 5).
 """
 from .dse import BatchOutcome, resimulate_batch, solve_block_status
 from .engine import OmniSim, simulate
@@ -25,9 +30,14 @@ from .incremental import (CompiledGraph, IncrementalOutcome,
                           check_constraints, compile_graph,
                           compiled_graph_from_arrays, resimulate,
                           verify_times)
+from .lightningsim import CSimCrash, LightningSim, csim
 from .program import (Delay, Emit, Empty, Fifo, Full, Module, Op, Program,
                       Read, ReadNB, SimResult, Write, WriteNB)
-from .trace import module_content_hash, program_fingerprint
+from .rtlsim import simulate_rtl
+from .taxonomy import Classification, classify, classify_dynamic
+from .trace import (CompiledTrace, ModuleTrace, RecordedTrace, TraceSimGraph,
+                    TraceUnsupported, compile_trace, module_content_hash,
+                    program_fingerprint, record_trace, simulate_traced)
 
 __all__ = [
     "OmniSim", "simulate", "resimulate", "resimulate_batch",
@@ -39,5 +49,9 @@ __all__ = [
     "longest_path_chains_batched", "level_schedule", "to_dense_blocks",
     "ChainFlatArrays", "export_chain_flat", "Constraint", "DeadlockError",
     "Query", "RequestType", "NodeKind", "SimStats", "UnsupportedDesignError",
-    "program_fingerprint", "module_content_hash",
+    "program_fingerprint", "module_content_hash", "simulate_rtl",
+    "LightningSim", "csim", "CSimCrash", "classify", "classify_dynamic",
+    "Classification", "TraceUnsupported", "RecordedTrace", "ModuleTrace",
+    "CompiledTrace", "TraceSimGraph", "record_trace", "compile_trace",
+    "simulate_traced",
 ]

@@ -30,9 +30,17 @@ Determinism: the ready list is serviced in module order by default;
 order is the reference's for the same seed) to demonstrate that results are
 schedule-independent — the property the paper fights OS scheduling for.
 
-Trace-compiled replay (the reference's ``core/trace.py``) is not ported
-yet (ROADMAP queue 1, item 4): :func:`simulate` runs this generator loop,
-which is the semantics reference for every design class (Type A/B/C).
+Trace compilation (paper Sec. 5.1): for blocking-only runs the per-op
+generator dispatch below is the dominant cost of the *initial* simulation,
+so :func:`simulate` first tries ``core/trace.py`` — record each module's
+op stream once, compile it to flat numpy op arrays, and replay by
+array-level dispatch (chain cummax + cross-edge fixpoint) instead of
+resuming generators.  Designs with live NB accesses / status probes, true
+deadlocks, or SPSC violations raise ``TraceUnsupported`` and fall back to
+the generator loop in this file, which remains the semantics reference for
+every design class (Type A/B/C).  The reference's hybrid replay for
+NB/probe designs is not ported yet (ROADMAP queue 1, item 5): such designs
+take this generator loop, with the same results.
 """
 from __future__ import annotations
 
@@ -96,11 +104,19 @@ class OmniSim:
     """
 
     def __init__(self, program: Program, shuffle_seed: Optional[int] = None,
-                 max_steps: int = 50_000_000, verify_finalization: bool = False):
+                 max_steps: int = 50_000_000, verify_finalization: bool = False,
+                 _fifo_shells: bool = False):
         self.program = program
         self.graph = SimGraph()
-        self.fifos = [FifoTable(f.fid, f.name, f.depth)
-                      for f in program.fifos]
+        # the trace replay (core/trace.py) installs every table's event
+        # arrays wholesale right after construction — _fifo_shells skips
+        # the per-table buffer allocations it would immediately discard
+        if _fifo_shells:
+            self.fifos = [FifoTable._shell(f.fid, f.name, f.depth)
+                          for f in program.fifos]
+        else:
+            self.fifos = [FifoTable(f.fid, f.name, f.depth)
+                          for f in program.fifos]
         self.tasks = [_Task(m.mid, m.name, None) for m in program.modules]
         self.outputs: Dict[str, Any] = {}
         self.stats = SimStats()
@@ -550,29 +566,54 @@ def simulate(program: Program, depths=None, shuffle_seed: Optional[int] = None,
     program's FIFOs in place (``Program.with_depths``), as in the
     reference.  ``trace`` selects the initial-simulation strategy:
 
-      * ``"auto"`` (default) — the reference tries compiled replay first
-        and falls back to the generator engine when replay cannot run the
-        design.  Compiled replay is not ported yet, so ``"auto"`` takes
-        that fallback: the generator engine.  Results are identical on
-        every path in the reference, so only speed differs.
-      * ``"always"`` — compiled replay or raise; raises
-        ``NotImplementedError`` until replay lands (ROADMAP queue 1,
-        items 4 and 5).
+      * ``"auto"`` (default) — try the straight-line trace-compiled replay
+        (``core/trace.py``: generators entered once, op arrays replayed by
+        vectorized dispatch); fall back to the generator engine when the
+        replay must defer (live NB accesses / status probes, true
+        deadlocks, SPSC violations — the generator engine produces the
+        paper-exact report).  Where the reference would take its hybrid
+        segmented replay (a design whose only obstacle is cycle-dependent
+        NB/probe control flow), the port takes the generator engine: the
+        results are identical, only ``engine`` reads ``"omnisim"`` where
+        the reference's reads ``"omnisim-hybrid"``.
+      * ``"always"`` — compiled replay or raise
+        :class:`~repro_torch.core.trace.TraceUnsupported`; a design that
+        needs the hybrid replay raises ``NotImplementedError`` instead
+        (ROADMAP queue 1, item 5), since the reference would succeed there.
       * ``"never"`` — generator engine only (the semantics reference; also
         used with ``shuffle_seed`` to exercise scheduling independence).
 
+    A non-``None`` ``shuffle_seed`` implies the generator path: the point
+    of shuffling is to randomize actual task servicing order, which the
+    schedule-free replay has no analogue of (``trace="always"`` plus a
+    seed is contradictory and raises ``ValueError``).
+
     Module bodies must be *re-runnable*: ``mod.fn()`` may be invoked more
-    than once per Program (the incremental/DSE fallbacks re-simulate from
+    than once per Program (an aborted trace recording falls back to the
+    generator path, and the incremental/DSE fallbacks re-simulate from
     scratch), so bodies must not mutate shared closure state or perform
     external side effects.
     """
     if trace not in ("auto", "always", "never"):
         raise ValueError(f"trace must be 'auto'|'always'|'never', got {trace!r}")
-    if trace == "always":
-        raise NotImplementedError(
-            "trace='always' needs compiled replay, which the PyTorch port "
-            "does not have yet (ROADMAP queue 1, items 4-5: trace-compiled "
-            "and hybrid replay); use trace='auto' or 'never'")
+    if trace == "always" and shuffle_seed is not None:
+        raise ValueError("trace='always' is incompatible with shuffle_seed: "
+                         "the schedule-free replay has no servicing order "
+                         "to shuffle")
     if depths is not None:
         program.with_depths(depths)
+    if trace != "never" and shuffle_seed is None:
+        from . import trace as _trace
+        try:
+            return _trace.simulate_traced(program, max_steps=max_steps)
+        except _trace.TraceUnsupported as exc:
+            if exc.dynamic:
+                if trace == "always":
+                    raise NotImplementedError(
+                        f"trace='always' on {program.name!r} needs the hybrid "
+                        f"segmented replay for NB/probe designs, which the "
+                        f"PyTorch port does not have yet (ROADMAP queue 1, "
+                        f"item 5); use trace='auto' or 'never'") from exc
+            elif trace == "always":
+                raise
     return OmniSim(program, shuffle_seed=shuffle_seed, max_steps=max_steps).run()

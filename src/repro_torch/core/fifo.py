@@ -29,6 +29,8 @@ from typing import Any, Optional
 
 import numpy as np
 
+_EMPTY_I64 = np.empty(0, dtype=np.int64)   # shared placeholder for shells
+
 
 class FifoTable:
     """One FIFO's committed read/write event tables (paper Fig. 7, (D)).
@@ -36,7 +38,9 @@ class FifoTable:
     Units: ``*_times`` are hardware **cycles** (1-based commit cycles);
     sequence numbers (``w``/``r`` arguments) are 1-based **event** counts on
     this FIFO's side.  Node indices refer to the simulation graph.  Filled
-    one commit at a time by the generator engine.
+    one commit at a time by the generator engine, or wholesale (vectorized)
+    by the trace replay (``core/trace.py``) — both end states are
+    identical.
     """
 
     __slots__ = ("fid", "name", "depth", "values",
@@ -56,6 +60,27 @@ class FifoTable:
         self._nw = 0
         self._nr = 0
         self.values: deque = deque()      # payloads not yet consumed
+
+    @classmethod
+    def _shell(cls, fid: int, name: str, depth: int) -> "FifoTable":
+        """Table whose event arrays are about to be installed wholesale.
+
+        The trace replay (``core/trace.py``) assigns ``_w_nodes`` /
+        ``_w_times`` / ``_r_nodes`` / ``_r_times`` for every FIFO right
+        after construction, so the per-table ``_INIT_CAP`` allocations of
+        ``__init__`` would be garbage on arrival.  The shared empty
+        placeholder keeps the views well-defined (``_nw == _nr == 0``) if
+        anything peeks before installation.
+        """
+        t = cls.__new__(cls)
+        t.fid = fid
+        t.name = name
+        t.depth = depth
+        t._w_nodes = t._w_times = t._r_nodes = t._r_times = _EMPTY_I64
+        t._nw = 0
+        t._nr = 0
+        t.values = deque()
+        return t
 
     # -- committed-event views (zero-copy numpy slices) ------------------------
     @property
@@ -83,8 +108,12 @@ class FifoTable:
         """Returns the 1-based write sequence number."""
         n = self._nw
         if n == len(self._w_nodes):
-            self._w_nodes = np.concatenate([self._w_nodes, self._w_nodes])
-            self._w_times = np.concatenate([self._w_times, self._w_times])
+            if n == 0:                    # _shell() table: no capacity yet
+                self._w_nodes = np.empty(self._INIT_CAP, dtype=np.int64)
+                self._w_times = np.empty(self._INIT_CAP, dtype=np.int64)
+            else:
+                self._w_nodes = np.concatenate([self._w_nodes, self._w_nodes])
+                self._w_times = np.concatenate([self._w_times, self._w_times])
         self._w_nodes[n] = node_idx
         self._w_times[n] = time
         self._nw = n + 1
@@ -96,8 +125,12 @@ class FifoTable:
         payload popped from the in-flight value queue."""
         n = self._nr
         if n == len(self._r_nodes):
-            self._r_nodes = np.concatenate([self._r_nodes, self._r_nodes])
-            self._r_times = np.concatenate([self._r_times, self._r_times])
+            if n == 0:                    # _shell() table: no capacity yet
+                self._r_nodes = np.empty(self._INIT_CAP, dtype=np.int64)
+                self._r_times = np.empty(self._INIT_CAP, dtype=np.int64)
+            else:
+                self._r_nodes = np.concatenate([self._r_nodes, self._r_nodes])
+                self._r_times = np.concatenate([self._r_times, self._r_times])
         self._r_nodes[n] = node_idx
         self._r_times[n] = time
         self._nr = n + 1

@@ -18,45 +18,58 @@ import numpy as np
 import pytest
 
 import repro.core as ref_core
+import repro.designs.dynamic as ref_dynamic
+import repro.designs.paper as ref_paper
+import repro.designs.typea as ref_typea
 from repro.designs.typea import skynet_like as ref_skynet_like
-from repro_torch.core import (compile_graph, resimulate, resimulate_batch,
-                              simulate, verify_times)
+import repro_torch.designs.dynamic as port_dynamic
+import repro_torch.designs.paper as port_paper
+import repro_torch.designs.typea as port_typea
+from repro_torch.core import (TraceUnsupported, compile_graph, resimulate,
+                              resimulate_batch, simulate, verify_times)
 from repro_torch.core.graph import longest_path_numpy
-from repro_torch.designs.dynamic import (fig2_poll_burst, multisite_poll,
-                                         nb_success_stream, watchdog_pipe)
+from repro_torch.designs.dynamic import watchdog_pipe
 from repro_torch.designs.paper import PAPER_DESIGNS
-from repro_torch.designs.typea import (fir_filter, high_latency_pipe,
-                                       merge_sort_staged, parallel_loops,
-                                       producer_consumer, skynet_like)
+from repro_torch.designs.typea import producer_consumer, skynet_like
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
-GOLDEN_DESIGNS = {
-    "fig4_ex2": lambda: PAPER_DESIGNS["fig4_ex2"](n=96),
-    "fig4_ex3": lambda: PAPER_DESIGNS["fig4_ex3"](n=96),
-    "fig4_ex4a": lambda: PAPER_DESIGNS["fig4_ex4a"](n=96),
-    "fig4_ex4a_d": lambda: PAPER_DESIGNS["fig4_ex4a_d"](n=96),
-    "fig4_ex4b": lambda: PAPER_DESIGNS["fig4_ex4b"](n=96),
-    "fig4_ex4b_d": lambda: PAPER_DESIGNS["fig4_ex4b_d"](n=96),
-    "fig4_ex5": lambda: PAPER_DESIGNS["fig4_ex5"](n=96),
-    "fig2_timer": lambda: PAPER_DESIGNS["fig2_timer"](n=96),
-    "deadlock": lambda: PAPER_DESIGNS["deadlock"](n=16),
-    "branch": lambda: PAPER_DESIGNS["branch"](prog_len=128),
-    "multicore": lambda: PAPER_DESIGNS["multicore"](cores=4, prog_len=32),
-    "watchdog_pipe": lambda: watchdog_pipe(items=96, stages=2, depth=4,
-                                           poll_gap=16),
-    "fig2_poll_burst": lambda: fig2_poll_burst(items=96, stages=2, depth=4),
-    "multisite_poll": lambda: multisite_poll(items=96, depth=16),
-    "nb_success_stream": lambda: nb_success_stream(items=96, depth=16),
-    "producer_consumer": lambda: producer_consumer(n=64),
-    "fir_filter": lambda: fir_filter(n=96, taps=4),
-    "parallel_loops": lambda: parallel_loops(n=64),
-    "merge_sort_staged": lambda: merge_sort_staged(log_n=4),
-    "skynet_like": lambda: skynet_like(items=96, depth=8),
-    "high_latency_pipe": lambda: high_latency_pipe(items=24, stages=3,
-                                                   ii=16),
-}
+
+def _golden_designs(paper, dynamic, typea):
+    """The golden instances, built from one package's design modules."""
+    P = paper.PAPER_DESIGNS
+    return {
+        "fig4_ex2": lambda: P["fig4_ex2"](n=96),
+        "fig4_ex3": lambda: P["fig4_ex3"](n=96),
+        "fig4_ex4a": lambda: P["fig4_ex4a"](n=96),
+        "fig4_ex4a_d": lambda: P["fig4_ex4a_d"](n=96),
+        "fig4_ex4b": lambda: P["fig4_ex4b"](n=96),
+        "fig4_ex4b_d": lambda: P["fig4_ex4b_d"](n=96),
+        "fig4_ex5": lambda: P["fig4_ex5"](n=96),
+        "fig2_timer": lambda: P["fig2_timer"](n=96),
+        "deadlock": lambda: P["deadlock"](n=16),
+        "branch": lambda: P["branch"](prog_len=128),
+        "multicore": lambda: P["multicore"](cores=4, prog_len=32),
+        "watchdog_pipe": lambda: dynamic.watchdog_pipe(
+            items=96, stages=2, depth=4, poll_gap=16),
+        "fig2_poll_burst": lambda: dynamic.fig2_poll_burst(
+            items=96, stages=2, depth=4),
+        "multisite_poll": lambda: dynamic.multisite_poll(items=96, depth=16),
+        "nb_success_stream": lambda: dynamic.nb_success_stream(items=96,
+                                                               depth=16),
+        "producer_consumer": lambda: typea.producer_consumer(n=64),
+        "fir_filter": lambda: typea.fir_filter(n=96, taps=4),
+        "parallel_loops": lambda: typea.parallel_loops(n=64),
+        "merge_sort_staged": lambda: typea.merge_sort_staged(log_n=4),
+        "skynet_like": lambda: typea.skynet_like(items=96, depth=8),
+        "high_latency_pipe": lambda: typea.high_latency_pipe(
+            items=24, stages=3, ii=16),
+    }
+
+
+GOLDEN_DESIGNS = _golden_designs(port_paper, port_dynamic, port_typea)
+REF_GOLDEN_DESIGNS = _golden_designs(ref_paper, ref_dynamic, ref_typea)
 
 
 def _normalize(obj):
@@ -113,10 +126,10 @@ def test_golden_list_matches_reference_records():
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_DESIGNS))
 def test_port_reproduces_golden_record(name):
-    """Generator engine (``trace="never"`` and ``"auto"``, which falls
-    through to it), ``resimulate`` on the variant depths, and
-    ``resimulate_batch`` on the host lane, all bit-identical to the
-    reference's record."""
+    """Generator engine (``trace="never"``), ``"auto"`` (compiled replay
+    where the reference takes it, else the generator engine), ``resimulate``
+    on the variant depths, and ``resimulate_batch`` on the host lane, all
+    bit-identical to the reference's record."""
     golden = _golden(name)
     core = {k: golden[k] for k in ("cycles", "deadlock", "deadlock_cycle",
                                    "outputs", "fifo_digest", "n_constraints",
@@ -126,7 +139,12 @@ def test_port_reproduces_golden_record(name):
     assert _record(g) == core, f"{name}: port's generator engine drifted"
     assert [int(d) for d in g.depths] == golden["depths"]
     a = simulate(make(), trace="auto")
-    assert a.engine == "omnisim"
+    # the reference's engine for this design, its hybrid replay read as
+    # the generator engine until the port has it (ROADMAP queue 1, item 5)
+    ref_engine = ref_core.simulate(REF_GOLDEN_DESIGNS[name](),
+                                   trace="auto").engine
+    assert a.engine == {"omnisim-hybrid": "omnisim"}.get(ref_engine,
+                                                         ref_engine)
     assert _record(a) == core, f"{name}: auto path drifted"
     if "variant" not in golden:
         return
@@ -161,11 +179,40 @@ def test_shuffled_servicing_order_gives_the_same_result():
         assert _record(shuf) == _record(base)
 
 
-def test_trace_always_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate(producer_consumer(n=8), trace="always")
+def test_trace_always_takes_compiled_replay():
+    res = simulate(producer_consumer(n=8), trace="always")
+    assert res.engine == "omnisim-trace"
+    assert res.outputs == simulate(producer_consumer(n=8),
+                                   trace="never").outputs
     with pytest.raises(ValueError):
         simulate(producer_consumer(n=8), trace="sometimes")
+
+
+def test_trace_always_raises_where_the_replay_defers():
+    """A design compiled replay cannot run: ``"always"`` raises
+    ``TraceUnsupported``, as in the reference; ``"auto"`` falls back."""
+    dl = PAPER_DESIGNS["deadlock"]
+    with pytest.raises(TraceUnsupported):
+        simulate(dl(n=8), trace="always")
+    assert simulate(dl(n=8), trace="auto").engine == "omnisim"
+
+
+def test_trace_always_on_an_nb_design_names_hybrid_replay():
+    """Where the reference takes its hybrid replay, ``"always"`` raises
+    ``NotImplementedError`` naming queue 1 item 5, not
+    ``TraceUnsupported``: the reference succeeds there."""
+    def build():
+        return watchdog_pipe(items=16, stages=2, depth=4, poll_gap=16)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        simulate(build(), trace="always")
+    assert simulate(build(), trace="auto").engine == "omnisim"
+
+
+def test_trace_always_with_shuffle_seed_is_an_error():
+    with pytest.raises(ValueError, match="shuffle_seed"):
+        simulate(producer_consumer(n=8), shuffle_seed=1, trace="always")
+    assert simulate(producer_consumer(n=8),
+                    shuffle_seed=1).engine == "omnisim"
 
 
 def test_simulate_writes_depths_into_the_program():
@@ -177,7 +224,8 @@ def test_simulate_writes_depths_into_the_program():
 def test_compiled_graph_matches_reference_field_for_field():
     """Same design, same node numbering: the port's compiled graph equals
     the reference's array for array."""
-    mine = compile_graph(simulate(skynet_like(items=24, depth=4)).graph)
+    mine = compile_graph(simulate(skynet_like(items=24, depth=4),
+                                  trace="never").graph)
     theirs = ref_core.compile_graph(
         ref_core.simulate(ref_skynet_like(items=24, depth=4),
                           trace="never").graph)

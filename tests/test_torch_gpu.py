@@ -19,8 +19,8 @@ import torch
 import repro_torch.core.dse as tdse
 from repro_torch.core import compile_graph, resimulate_batch, simulate
 from repro_torch.designs.paper import fig4_ex5
-from repro_torch.designs.typea import (merge_sort_staged, producer_consumer,
-                                       skynet_like)
+from repro_torch.designs.typea import (matmul_stream, merge_sort_staged,
+                                       producer_consumer, skynet_like)
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.maxplus import kernel, ops, ref, sparse
 
@@ -165,6 +165,43 @@ def test_war_cycle_rows_are_cycles_on_the_card(dev):
                                fallback=False)
         assert out.status.tolist()[:2] == [tdse.CYCLE] * 2, lane
         assert (out.status[2:] == tdse.REUSED).all(), lane
+
+
+@pytest.mark.parametrize("name,build,hi", [
+    ("merge_sort_staged", lambda: merge_sort_staged(5), 8),
+    ("skynet_like", lambda: skynet_like(items=48, depth=6), 12),
+    ("matmul_stream", lambda: matmul_stream(m=6, k=6, n=6), 8),
+])
+def test_trace_built_graph_resolves_like_the_generator_built(dev, name,
+                                                             build, hi):
+    """Compiled replay's graph (chain-major node ids) and the generator
+    engine's (creation order) through kernel 1: status, cycles and
+    violated counts bit for bit, and against the host lane."""
+    tr, gen = simulate(build()), simulate(build(), trace="never")
+    assert tr.engine == "omnisim-trace" and gen.engine == "omnisim"
+    D = np.random.default_rng(3).integers(1, hi + 1,
+                                          size=(256, len(tr.depths)))
+    before = _cuda.SPARSE.launches
+    a = tdse.solve_block_status(compile_graph(tr.graph), D, backend="cuda",
+                                device=dev)
+    assert _cuda.SPARSE.launches > before
+    b = tdse.solve_block_status(compile_graph(gen.graph), D, backend="cuda",
+                                device=dev)
+    want = tdse.solve_block_status(compile_graph(tr.graph), D[:32],
+                                   backend="numpy")
+    for x, y, z in zip(a[:3], b[:3], want[:3]):
+        assert np.array_equal(x, y), name
+        assert np.array_equal(x[:32], z), name
+
+
+def test_finalize_times_on_a_trace_graph(dev):
+    """Kernel 2 on the trace graph's CSR: its own times, bit for bit."""
+    res = simulate(merge_sort_staged(5))
+    assert res.engine == "omnisim-trace"
+    before = _cuda.DENSE.launches
+    got = ops.finalize_times(res.graph.graph, device=dev)
+    assert _cuda.DENSE.launches > before
+    assert np.array_equal(got.cpu().numpy(), res.graph.graph.times())
 
 
 # ------------------------------------------------------------ sweep service
