@@ -21,8 +21,8 @@ Phases, each printing its own line:
      a user calls (``solve_block_status`` / ``resimulate_batch`` with
      ``backend="cuda"`` or ``"cuda_dense"``).  ``simulate`` takes
      compiled replay (``engine == "omnisim-trace"``, required) on every
-     blocking design, as the reference does; ``fig4_ex5`` takes the
-     generator engine (the reference's hybrid replay is not ported yet):
+     blocking design and the hybrid replay (``"omnisim-hybrid"``) on
+     ``fig4_ex5``, as the reference does:
        3. ``skynet_like()`` at its defaults (102 452 nodes), K = 4096;
        4. ``matmul_stream()`` and ``merge_sort_staged(8)``, K = 1024;
        5. ``fig4_ex5()`` at K = 128 with the engine fallback, and the
@@ -145,7 +145,33 @@ Phases, each printing its own line:
            wall time against compiled replay's on the Type A designs at
            their defaults (the paper's Table 5, on this host).
      Kernel 1's and kernel 2's launch counts are zeroed just before and
-     read just after (b) and (c).  The run's total time is printed last.
+     read just after (b) and (c);
+  17. hybrid replay (NB/probe designs) on the card's machine, at the
+     designs' defaults (``fig4_ex5()``, ``fig2_timer()``, ``branch()``,
+     ``multicore()``, ``watchdog_pipe()``):
+       (a) hybrid replay against the generator engine: cold (no cache),
+           warm (a ``HybridCache`` after one run: whole-run replay) and
+           ``periodize=False``, medians of 3 after a warm run; results,
+           graph size, node times as multisets, FIFO tables and query
+           counts equal; ``hybrid_info`` printed;
+       (b) kernel 1 from hybrid-built against generator-built bases:
+           ``fig4_ex5`` K 128 (phase 5's rows) and ``watchdog_pipe`` K
+           1024 (depths 1-16): status, cycles, violated and rounds equal,
+           and equal to ``backend="numpy"``; ms a round beside the bound;
+       (c) ``finalize_times`` (kernel 2) on ``fig4_ex5``'s hybrid-built
+           graph equals its ``times()``;
+       (d) phase 5's ``fig4_ex5`` K 128 fallback block three ways: direct
+           ``resimulate_batch`` (hybrid fallback, no cache),
+           ``materialize_block`` with a fresh ``HybridCache`` (then again,
+           warm), and the generator engine over the same rows; verdicts
+           equal phase 5's; the hybrid attempts that abort (deadlocked
+           rows) timed apart;
+       (e) served: the ``HybridCache`` counters of phase 15 (a)'s
+           service, and a fresh service sweeping ``fig4_ex5`` (submitted
+           as a Program) twice, rows equal to the direct solve.
+     Kernel 1's and kernel 2's launch counts are zeroed just before and
+     read just after (b) and (c); the full GC passes inside each window
+     are counted.  The run's total time is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
 float32 comparisons measure the kernels, not TF32.  The last two lines are
@@ -299,14 +325,16 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.core import (Emit, LightningSim, Program, Read,
-                                  TraceSimGraph, UnsupportedDesignError,
-                                  Write, classify, compile_graph, csim,
-                                  program_fingerprint, resimulate_batch,
-                                  simulate, simulate_rtl, solve_block_status)
+    from repro_torch.core import (Emit, HybridCache, LightningSim, Program,
+                                  Read, TraceSimGraph, TraceUnsupported,
+                                  UnsupportedDesignError, Write, classify,
+                                  compile_graph, csim, program_fingerprint,
+                                  resimulate_batch, simulate, simulate_hybrid,
+                                  simulate_rtl, solve_block_status)
     from repro_torch.core import dse
     from repro_torch.core.axi import axi_master_design, axi_prefetch_design
     from repro_torch.core.graph import export_chain_flat, longest_path_numpy
+    from repro_torch.designs.dynamic import watchdog_pipe
     from repro_torch.designs.paper import PAPER_DESIGNS, fig4_ex5
     from repro_torch.designs.typea import (TYPEA_DESIGNS, flowgnn_like,
                                            matmul_stream, merge_sort_staged,
@@ -483,10 +511,9 @@ def main():
                 "msort8": lambda: merge_sort_staged(8), "fig4_ex5": fig4_ex5,
                 "msort6": merge_sort_staged}
     # the initial simulation each design takes, as in the reference: the
-    # blocking designs compiled replay; fig4_ex5 the generator engine,
-    # where the reference takes its hybrid replay (not ported yet)
+    # blocking designs compiled replay; fig4_ex5 the hybrid replay
     want_engine = {"skynet": "omnisim-trace", "matmul": "omnisim-trace",
-                   "msort8": "omnisim-trace", "fig4_ex5": "omnisim",
+                   "msort8": "omnisim-trace", "fig4_ex5": "omnisim-hybrid",
                    "msort6": "omnisim-trace"}
     for lib in _cuda.LIBS:
         lib.reset_counts()
@@ -650,9 +677,10 @@ def main():
 
     # ---------------------------------------------------------------- 7
     kernels = []
+    walls7 = {}
     with phase("7 timings"):
         for name, fn in calls.items():
-            walls = []
+            walls = walls7[name] = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 fn()
@@ -1464,9 +1492,15 @@ def main():
         spans = [b - a for a, b in full_gc if a >= t0 and b is not None]
         return len(spans), sum(spans)
 
+    def hyb_counters(c):
+        return {k: getattr(c, k) for k in (
+            "hits", "misses", "switches", "divergences", "full_hits",
+            "full_misses", "full_rejects")}
+
     gc.callbacks.append(on_gc)
     Da, Di = Dm["matmul"], Dm["fig4_ex5"][:16]
     service_launches = {}
+    served_hybrid = {}
     with phase("15 sweep service on the card (SweepService, "
                "backend='cuda')"):
         # (a) two tenants at once, the background thread on
@@ -1526,6 +1560,9 @@ def main():
                           tenant="bulk").result(timeout=600)
         wall_d = time.perf_counter() - t0
         st = svc_a.stats()["scheduler"]
+        # the service's shared HybridCache after (a) and (d), for 17 (e)
+        served_hybrid["a"] = (hyb_counters(svc_a.cache.hybrid),
+                              svc_a.stats()["cache"]["full_runs"])
         svc_a.close()
         memo = st["memo_hits"] - before["memo_hits"]
         solved = st["rows_unique"] - before["rows_unique"]
@@ -1860,12 +1897,250 @@ def main():
         log(f"  LightningSim / compiled replay, medians of 3 after a warm "
             f"run: {'; '.join(rows5)} [{card}]")
 
+    # --------------------------------------------------------------- 17
+    def gc_note(t0):
+        n_gc, s_gc = full_gc_since(t0)
+        return f"full GC passes in the window: {n_gc}, {s_gc:.3f} s"
+
+    def same_queries(a, b, what):
+        check((a.stats.queries, a.stats.queries_forced_false,
+               a.stats.skipped_probes, len(a.constraints))
+              == (b.stats.queries, b.stats.queries_forced_false,
+                  b.stats.skipped_probes, len(b.constraints)),
+              f"{what}: query counts differ")
+
+    hybrid_designs = {"fig4_ex5()": fig4_ex5,
+                      "fig2_timer()": PAPER_DESIGNS["fig2_timer"],
+                      "branch()": PAPER_DESIGNS["branch"],
+                      "multicore()": PAPER_DESIGNS["multicore"],
+                      "watchdog_pipe()": watchdog_pipe}
+    gc.callbacks.append(on_gc)
+    with phase("17 (a) hybrid replay vs the generator engine"):
+        for key, build in hybrid_designs.items():
+            t_w = time.perf_counter()
+            s_c, r_c = wall(lambda: simulate(build()))
+            hc = HybridCache()
+            simulate(build(), hybrid_cache=hc)
+            s_w, r_w = wall(lambda: simulate(build(), hybrid_cache=hc))
+            s_n, r_n = wall(lambda: simulate(build(), periodize=False))
+            s_g, r_g = wall(lambda: simulate(build(), trace="never"))
+            check(r_g.engine == "omnisim" and {r.engine for r in
+                                               (r_c, r_w, r_n)}
+                  == {"omnisim-hybrid"}, f"{key}: engines {r_c.engine}, "
+                  f"{r_w.engine}, {r_n.engine}, {r_g.engine}")
+            for r, what in ((r_c, "cold"), (r_w, "warm"),
+                            (r_n, "periodize=False")):
+                same_sim(r, r_g, f"{key} {what}")
+                same_queries(r, r_g, f"{key} {what}")
+            info = r_c.graph._hybrid
+            check(hc.full_hits == 4 and hc.full_rejects == 0
+                  and r_w.graph._hybrid["cache_bulk_rows"] == info["ops"],
+                  f"{key}: warm runs not replayed whole: {hyb_counters(hc)}")
+            check(r_n.stats.queries_periodized == 0, f"{key}: periodized "
+                  f"with periodize=False")
+            log(f"  {key}: hybrid cold {s_c:.4f} s, warm {s_w:.4f} s, "
+                f"periodize=False {s_n:.4f} s, generator engine {s_g:.4f} s "
+                f"(medians of 3 after a warm run): {s_g / s_c:.2f}x cold, "
+                f"{s_g / s_w:.2f}x warm; {r_c.stats.nodes} nodes, cycles "
+                f"{r_c.cycles}; hybrid_info {info}; queries_periodized "
+                f"{r_c.stats.queries_periodized}; {gc_note(t_w)} [{card}]")
+
+    hybrid_launches, k1_hybrid = {}, {}
+    with phase("17 (b) hybrid-built bases through kernel 1"):
+        wd_base = simulate(watchdog_pipe())
+        D_wd = np.random.default_rng(0).integers(
+            1, 17, size=(1024, len(wd_base.depths)))
+        o5 = out["5 fig4_ex5 K=128 fallback"]
+        for key, base_h, build, D, n_np in (
+                ("fig4_ex5", designs["fig4_ex5"][0], fig4_ex5,
+                 Dm["fig4_ex5"], 128),
+                ("watchdog_pipe", wd_base, watchdog_pipe, D_wd, 64)):
+            check(base_h.engine == "omnisim-hybrid",
+                  f"{key}: base run took {base_h.engine}")
+            base_g = simulate(build(), trace="never")
+            g_h, g_g = compile_graph(base_h.graph), compile_graph(base_g.graph)
+            check(g_h.n == g_g.n, f"{key}: node counts differ")
+            _cuda.SPARSE.reset_counts()
+            st_h = solve_block_status(g_h, D, backend="cuda", device=dev)
+            st_g = solve_block_status(g_g, D, backend="cuda", device=dev)
+            sync()
+            hybrid_launches[key] = _cuda.SPARSE.launches
+            check(hybrid_launches[key] > 0, f"{key}: kernel 1 not launched")
+            same_status(st_h, st_g, f"{key} hybrid vs generator graph")
+            same_status([x[:n_np] for x in st_h[:3]],
+                        solve_block_status(g_g, D[:n_np], backend="numpy"),
+                        f"{key} vs numpy")
+            check(st_h[3] == st_g[3], f"{key}: rounds launched differ: "
+                  f"{st_h[3]} vs {st_g[3]}")
+            if key == "fig4_ex5":
+                check(np.array_equal(st_h[0], o5.status)
+                      and np.array_equal(st_h[2], o5.violated),
+                      "fig4_ex5: verdicts differ from phase 5's")
+            per = {}
+            for src, g in (("hybrid", g_h), ("generator", g_g)):
+                ba = dse._batch_arrays(g)
+                Da_ = D[~(D < ba.fifo_need[None, :]).any(axis=1)]
+                arr = dse._sparse_arrays(ba, dev)
+                Dt = torch.from_numpy(np.minimum(Da_, 1 << 30)
+                                      .astype(np.int32)).to(dev)
+                got = {}
+                ms = cuda_time(lambda: got.__setitem__(
+                    "k", sparse.solve_chains(arr, Dt)), 3)
+                plain = ref.solve_chains_ref(arr, Dt)
+                err = same_solve(got["k"], plain)
+                E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
+                rounds, K = plain[2], Dt.shape[0]
+                bound_ms = (4 * K * (2 * g.n + 2 * (E + m)) * rounds
+                            / HBM_BYTES_PER_S * 1e3)
+                per[src] = (ms, got["k"][2], rounds, bound_ms, err, E, m, K)
+            (ms_h, l_h, need, bnd, err, E, m, K) = per["hybrid"]
+            ms_g, l_g = per["generator"][:2]
+            check(l_h == l_g and need == per["generator"][2],
+                  f"{key}: kernel rounds differ {l_h} vs {l_g}")
+            k1_hybrid[key] = {"ms": ms_h, "bound_ms": bnd, "max_abs_err": err}
+            log(f"  {key} (n={g_h.n}, E={E}, m={m}, K={K} rows that can "
+                f"commit): kernel 1 per solve {ms_h:.3f} ms from the hybrid-"
+                f"built graph, {ms_g:.3f} ms from the generator-built "
+                f"({ms_h / ms_g:.3f}x); per round {1e3 * ms_h / l_h:.2f} "
+                f"against {1e3 * ms_g / l_g:.2f} us ({l_h} rounds launched, "
+                f"{need} needed); bound {bnd:.4f} ms, "
+                f"{1e3 * bnd / need:.2f} us a round; status, cycles, "
+                f"violated bit-identical; kernel 1 launches "
+                f"{hybrid_launches[key]} [{card}]")
+
+    hybrid_dense = {}
+    with phase("17 (c) the hybrid graph through kernel 2"):
+        sg = designs["fig4_ex5"][0].graph.graph
+        check(isinstance(sg, TraceSimGraph), f"fig4_ex5 graph is "
+              f"{type(sg).__name__}")
+        _cuda.DENSE.reset_counts()
+        ft = ops.finalize_times(sg, device=dev)
+        sync()
+        hybrid_dense["launches"] = _cuda.DENSE.launches
+        check(hybrid_dense["launches"] > 0, "kernel 2 not launched")
+        check(np.array_equal(ft.cpu().numpy(), sg.times()),
+              "finalize_times differs from the hybrid graph's times()")
+        hybrid_dense["ms"] = cuda_time(
+            lambda: ops.finalize_times(sg, device=dev), 1)
+        log(f"  fig4_ex5(): finalize_times on the hybrid-built "
+            f"TraceSimGraph (n={sg.n_nodes}) equals its times(); kernel 2 "
+            f"launches {hybrid_dense['launches']}; {hybrid_dense['ms']:.1f} "
+            f"ms a call (CUDA events around the call, host CSR and densify "
+            f"included) [{card}]")
+
+    with phase("17 (d) fig4_ex5 K=128 fallback block, three ways"):
+        base_h, D = designs["fig4_ex5"][0], Dm["fig4_ex5"]
+        o5 = out["5 fig4_ex5 K=128 fallback"]
+        t_w = time.perf_counter()
+        t0 = time.perf_counter()
+        o_dir = resimulate_batch(base_h, D, backend="cuda", device=dev)
+        s_dir = time.perf_counter() - t0
+        same_outcome(o_dir, o5, "direct resimulate_batch vs phase 5")
+        Du, inv = np.unique(D, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        st_u = solve_block_status(compile_graph(base_h.graph), Du,
+                                  backend="cuda", device=dev)
+        sync()
+        fb = np.isin(st_u[0], list(dse.FALLBACK_STATUSES))
+        hc = HybridCache()
+        s_mb = []
+        for _ in range(2):            # cold HybridCache, then warm
+            cyc = st_u[1].copy()
+            t0 = time.perf_counter()
+            res_u, _reasons = dse.materialize_block(
+                base_h, Du, st_u[0], cyc, st_u[2], np.ones(len(Du), bool),
+                hybrid_cache=hc)
+            s_mb.append(time.perf_counter() - t0)
+            for k, u in enumerate(inv):
+                ra, rb = res_u[u], o5.results[k]
+                check(ra.cycles == rb.cycles and ra.outputs == rb.outputs
+                      and ra.deadlock == rb.deadlock,
+                      f"materialize_block row {k} differs from phase 5")
+        counters_mb = hyb_counters(hc)
+        t0 = time.perf_counter()
+        gen_u = {}
+        for u in np.flatnonzero(fb):
+            gen_u[u] = simulate(fig4_ex5(), depths=tuple(int(x)
+                                                          for x in Du[u]),
+                                trace="never")
+        s_gen = time.perf_counter() - t0
+        for u, r in gen_u.items():
+            rb = o5.results[int(np.flatnonzero(inv == u)[0])]
+            check(r.cycles == rb.cycles and r.outputs == rb.outputs
+                  and r.deadlock == rb.deadlock,
+                  f"generator fallback of unique row {u} differs")
+        engines = {}
+        for u in np.flatnonzero(fb):
+            e = res_u[u].engine
+            engines[e] = engines.get(e, 0) + 1
+        # the rows whose hybrid attempt aborts (deadlock): the attempt
+        # alone, before the generator engine takes over
+        aborted = [u for u in np.flatnonzero(fb)
+                   if res_u[u].engine == "omnisim"]
+        s_abort = []
+        for u in aborted:
+            t0 = time.perf_counter()
+            try:
+                simulate_hybrid(fig4_ex5().with_depths(
+                    tuple(int(x) for x in Du[u])))
+            except TraceUnsupported:
+                pass
+            else:
+                check(False, f"unique row {u}: the hybrid did not abort")
+            s_abort.append(time.perf_counter() - t0)
+        w7 = statistics.median(walls7["5 fig4_ex5 K=128 fallback"])
+        log(f"  fig4_ex5 K={len(D)} ({len(Du)} unique rows, {int(fb.sum())} "
+            f"fall back: engines {engines}): direct resimulate_batch "
+            f"(hybrid fallback, no cache) {s_dir:.3f} s (phase 7's median "
+            f"of the same call {w7:.3f} s); "
+            f"materialize_block with a fresh HybridCache {s_mb[0]:.3f} s, "
+            f"again with it warm {s_mb[1]:.3f} s (counters {counters_mb}); "
+            f"generator engine over the same {len(gen_u)} rows "
+            f"{s_gen:.3f} s ({s_gen / max(s_mb[0], 1e-9):.2f}x the cold "
+            f"block); aborted hybrid attempts {len(aborted)}, "
+            f"{1e3 * sum(s_abort):.2f} ms in all "
+            f"({1e3 * max(s_abort, default=0.0):.2f} ms the longest); "
+            f"{gc_note(t_w)} [{card}]")
+
+    with phase("17 (e) served fig4_ex5 with the service's HybridCache"):
+        cnt_a, full_a = served_hybrid.get("a", ({}, None))
+        log(f"  phase 15 (a)'s service (interactive fig4_ex5 K=16 as a "
+            f"SimResult, no cold build): HybridCache {cnt_a}, "
+            f"full_runs {full_a} [{card}]")
+        want = resimulate_batch(designs["fig4_ex5"][0], Di, backend="cuda",
+                                device=dev)
+        t_w = time.perf_counter()
+        svc = SweepService(backend="cuda", device=dev, autostart=False)
+        walls_e = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            o = svc.sweep(fig4_ex5(), Di)
+            sync()
+            walls_e.append(time.perf_counter() - t0)
+            same_outcome(o, want, "(e) served vs direct resimulate_batch")
+        cnt_e = hyb_counters(svc.cache.hybrid)
+        full_e = svc.stats()["cache"]["full_runs"]
+        fallbacks = svc.stats()["scheduler"]["fallbacks"]
+        svc.close()
+        check(full_e == 1, f"(e): full_runs {full_e}, want 1")
+        check(cnt_e["full_hits"] >= fallbacks // 2, f"(e): the repeat "
+              f"sweep's fallbacks did not replay: {cnt_e}")
+        log(f"  (e) fresh service, fig4_ex5 K={len(Di)} submitted as a "
+            f"Program twice: {walls_e[0]:.3f} s (cold build and "
+            f"{fallbacks // 2} hybrid fallbacks), then {walls_e[1]:.3f} s "
+            f"(whole-run replays); HybridCache {cnt_e}, full_runs {full_e}; "
+            f"rows equal to the direct solve; {gc_note(t_w)} [{card}]")
+    gc.callbacks.remove(on_gc)
+
     for k in kernels:
         if k["name"] == "maxplus_sparse_fixpoint":
             k["launches_service"] = service_launches
             k["launches_trace_resolves"] = trace_launches
+            k["launches_hybrid_resolves"] = hybrid_launches
+            k["hybrid_resolves"] = k1_hybrid
         if k["name"] == "maxplus_dense_sweep":
             k["launches_trace_finalize"] = trace_dense.get("launches")
+            k["launches_hybrid_finalize"] = hybrid_dense.get("launches")
 
     if FAILURES:
         log(f"FAILED phases: {FAILURES}")

@@ -8,15 +8,15 @@ Mirrors ``repro.core``'s public names for what is ported so far::
                                   simulate_rtl, simulate_traced,
                                   LightningSim, csim, resimulate,
                                   resimulate_batch, classify,
+                                  simulate_hybrid, HybridCache,
                                   program_fingerprint)
 
 The simulator is host logic (plain Python and numpy, following the
-reference): the generator engine, trace-compiled replay, the RTL oracle,
-the LightningSim baseline, C-sim and the taxonomy.  The batched depth
-re-solve (``resimulate_batch``) runs its max-plus fixpoint on the card
-through hand-written CUDA kernels (``repro_torch.kernels.maxplus``).  Not
-ported yet: the hybrid replay (``HybridCache``, ``HybridSim``,
-``simulate_hybrid``; ROADMAP queue 1, item 5).
+reference): the generator engine, trace-compiled replay, the hybrid
+segmented replay for NB/probe designs, the RTL oracle, the LightningSim
+baseline, C-sim and the taxonomy.  The batched depth re-solve
+(``resimulate_batch``) runs its max-plus fixpoint on the card through
+hand-written CUDA kernels (``repro_torch.kernels.maxplus``).
 """
 from .dse import BatchOutcome, resimulate_batch, solve_block_status
 from .engine import OmniSim, simulate
@@ -35,9 +35,10 @@ from .program import (Delay, Emit, Empty, Fifo, Full, Module, Op, Program,
                       Read, ReadNB, SimResult, Write, WriteNB)
 from .rtlsim import simulate_rtl
 from .taxonomy import Classification, classify, classify_dynamic
-from .trace import (CompiledTrace, ModuleTrace, RecordedTrace, TraceSimGraph,
-                    TraceUnsupported, compile_trace, module_content_hash,
-                    program_fingerprint, record_trace, simulate_traced)
+from .trace import (CompiledTrace, HybridCache, HybridSim, ModuleTrace,
+                    RecordedTrace, TraceSimGraph, TraceUnsupported,
+                    compile_trace, module_content_hash, program_fingerprint,
+                    record_trace, simulate_hybrid, simulate_traced)
 
 __all__ = [
     "OmniSim", "simulate", "resimulate", "resimulate_batch",
@@ -53,5 +54,5 @@ __all__ = [
     "LightningSim", "csim", "CSimCrash", "classify", "classify_dynamic",
     "Classification", "TraceUnsupported", "RecordedTrace", "ModuleTrace",
     "CompiledTrace", "TraceSimGraph", "record_trace", "compile_trace",
-    "simulate_traced",
+    "simulate_traced", "HybridCache", "HybridSim", "simulate_hybrid",
 ]

@@ -658,7 +658,8 @@ def status_reason(cache: CompiledGraph, status_k: int, violated_k: int,
 def materialize_block(result: SimResult, Du: np.ndarray,
                       status_u: np.ndarray, cycles_u: np.ndarray,
                       violated_u: np.ndarray, fallback_mask: np.ndarray,
-                      engine_label: str = "omnisim-batch", lock=None):
+                      engine_label: str = "omnisim-batch", lock=None,
+                      hybrid_cache=None):
     """Post-solve verdict assembly shared by :func:`resimulate_batch` and
     the sweep scheduler (``repro_torch/sweep/scheduler.py``).
 
@@ -669,7 +670,11 @@ def materialize_block(result: SimResult, Du: np.ndarray,
     place with its result).  The fallback holds the program's mutation
     lock, and ``lock`` too where given: it temporarily sets the Program's
     FIFO depths.  The sweep scheduler passes the design's entry lock;
-    direct library calls need none.  Returns ``(results_u, reasons_u)``.
+    direct library calls need none.  ``hybrid_cache`` threads a shared
+    :class:`~repro_torch.core.trace.HybridCache` into the fallback
+    simulations, so a dynamic design's repeat fallbacks (same depths, any
+    tenant) replay the verified whole-run entry instead of
+    re-interpreting.  Returns ``(results_u, reasons_u)``.
     """
     engine: OmniSim = result.graph
     cache = compile_graph(engine)
@@ -697,7 +702,8 @@ def materialize_block(result: SimResult, Du: np.ndarray,
                 saved = engine.program.depths()
                 try:
                     full = simulate(engine.program,
-                                    depths=tuple(int(d) for d in Du[u]))
+                                    depths=tuple(int(d) for d in Du[u]),
+                                    hybrid_cache=hybrid_cache)
                 finally:
                     engine.program.with_depths(saved)
             results_u[u] = full

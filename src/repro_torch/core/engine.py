@@ -35,12 +35,11 @@ generator dispatch below is the dominant cost of the *initial* simulation,
 so :func:`simulate` first tries ``core/trace.py`` — record each module's
 op stream once, compile it to flat numpy op arrays, and replay by
 array-level dispatch (chain cummax + cross-edge fixpoint) instead of
-resuming generators.  Designs with live NB accesses / status probes, true
-deadlocks, or SPSC violations raise ``TraceUnsupported`` and fall back to
-the generator loop in this file, which remains the semantics reference for
-every design class (Type A/B/C).  The reference's hybrid replay for
-NB/probe designs is not ported yet (ROADMAP queue 1, item 5): such designs
-take this generator loop, with the same results.
+resuming generators.  Designs with live NB accesses / status probes take
+the hybrid segmented replay (``trace.simulate_hybrid``); true deadlocks and
+SPSC violations raise ``TraceUnsupported`` and fall back to the generator
+loop in this file, which remains the semantics reference for every design
+class (Type A/B/C).
 """
 from __future__ import annotations
 
@@ -559,7 +558,8 @@ class OmniSim:
 
 
 def simulate(program: Program, depths=None, shuffle_seed: Optional[int] = None,
-             max_steps: int = 50_000_000, trace: str = "auto") -> SimResult:
+             max_steps: int = 50_000_000, trace: str = "auto",
+             hybrid_cache=None, periodize: bool = True) -> SimResult:
     """Run the OmniSim engine on ``program`` (optionally overriding depths).
 
     Mirrors ``repro.core.simulate``.  ``depths`` is written into the
@@ -568,20 +568,28 @@ def simulate(program: Program, depths=None, shuffle_seed: Optional[int] = None,
 
       * ``"auto"`` (default) — try the straight-line trace-compiled replay
         (``core/trace.py``: generators entered once, op arrays replayed by
-        vectorized dispatch); fall back to the generator engine when the
-        replay must defer (live NB accesses / status probes, true
-        deadlocks, SPSC violations — the generator engine produces the
-        paper-exact report).  Where the reference would take its hybrid
-        segmented replay (a design whose only obstacle is cycle-dependent
-        NB/probe control flow), the port takes the generator engine: the
-        results are identical, only ``engine`` reads ``"omnisim"`` where
-        the reference's reads ``"omnisim-hybrid"``.
-      * ``"always"`` — compiled replay or raise
-        :class:`~repro_torch.core.trace.TraceUnsupported`; a design that
-        needs the hybrid replay raises ``NotImplementedError`` instead
-        (ROADMAP queue 1, item 5), since the reference would succeed there.
+        vectorized dispatch); when the design's control flow is
+        cycle-dependent (live NB accesses / status probes), drop to the
+        *hybrid* segmented replay (``trace.simulate_hybrid``: blocking
+        segments compiled to flat arrays, generator protocol only at the
+        query points); fall back to the generator engine only when even the
+        hybrid path must defer (true deadlocks, SPSC violations — the
+        generator engine produces the paper-exact report).  Results are
+        identical on every path.
+      * ``"always"`` — compiled replay (straight-line or hybrid) or raise
+        :class:`~repro_torch.core.trace.TraceUnsupported`.
       * ``"never"`` — generator engine only (the semantics reference; also
         used with ``shuffle_seed`` to exercise scheduling independence).
+
+    ``hybrid_cache`` (a :class:`~repro_torch.core.trace.HybridCache`)
+    memoizes module yield streams across repeated simulations of the same
+    design shape — ``classify_dynamic`` threads one through its
+    perturbed-depth probe runs, the sweep cache shares one across its cold
+    builds.  ``periodize`` (default True) enables the hybrid path's
+    steady-state query periodization — fixed poll loops resolve their
+    definitively-false outcomes in bulk against the committed FIFO tables
+    (``SimStats.queries_periodized`` counts them) — and only affects speed,
+    never results.
 
     A non-``None`` ``shuffle_seed`` implies the generator path: the point
     of shuffling is to randomize actual task servicing order, which the
@@ -590,8 +598,8 @@ def simulate(program: Program, depths=None, shuffle_seed: Optional[int] = None,
 
     Module bodies must be *re-runnable*: ``mod.fn()`` may be invoked more
     than once per Program (an aborted trace recording falls back to the
-    generator path, and the incremental/DSE fallbacks re-simulate from
-    scratch), so bodies must not mutate shared closure state or perform
+    hybrid/generator paths, and the incremental/DSE fallbacks re-simulate
+    from scratch), so bodies must not mutate shared closure state or perform
     external side effects.
     """
     if trace not in ("auto", "always", "never"):
@@ -608,12 +616,13 @@ def simulate(program: Program, depths=None, shuffle_seed: Optional[int] = None,
             return _trace.simulate_traced(program, max_steps=max_steps)
         except _trace.TraceUnsupported as exc:
             if exc.dynamic:
-                if trace == "always":
-                    raise NotImplementedError(
-                        f"trace='always' on {program.name!r} needs the hybrid "
-                        f"segmented replay for NB/probe designs, which the "
-                        f"PyTorch port does not have yet (ROADMAP queue 1, "
-                        f"item 5); use trace='auto' or 'never'") from exc
+                try:
+                    return _trace.simulate_hybrid(program, max_steps=max_steps,
+                                                  cache=hybrid_cache,
+                                                  periodize=periodize)
+                except _trace.TraceUnsupported:
+                    if trace == "always":
+                        raise        # the hybrid verdict is the precise one
             elif trace == "always":
                 raise
     return OmniSim(program, shuffle_seed=shuffle_seed, max_steps=max_steps).run()

@@ -1,10 +1,6 @@
 """Dataflow-design taxonomy (paper Sec. 3, Figs. 3-4).
 
-PyTorch-port copy of ``repro.core.taxonomy``.  ``classify_dynamic`` runs
-its probes through the port's ``simulate`` without the reference's
-``HybridCache``, which is not ported yet (ROADMAP queue 1, item 5); the
-probes' outputs, and so the classifications, are the reference's.
-
+PyTorch-port copy of ``repro.core.taxonomy``.
 
 Classification is by three defining features:
 
@@ -88,19 +84,19 @@ def classify_dynamic(builder, n_variants: int = 4,
     conservative static classification stands.
 
     ``builder`` is a zero-arg callable returning a fresh Program (generators
-    are single-use).  In the reference all probe runs share one
-    ``HybridCache`` (its ``cache`` argument); the port has no hybrid replay
-    yet, so its probes run uncached through :func:`simulate` and a
-    non-``None`` ``cache`` raises ``NotImplementedError`` (ROADMAP queue 1,
-    item 5).
+    are single-use).  All probe runs share one
+    :class:`~repro_torch.core.trace.HybridCache` (pass ``cache`` to supply
+    your own and inspect its hit/switch/divergence counters afterwards), so
+    dynamic designs replay their memoized module streams across the depth
+    variants — validated cached segments replay array-at-a-time, making the
+    probe runs near-free — and only re-run generators past genuine
+    control-flow divergences (the witnesses this probe is hunting for).
     """
-    if cache is not None:
-        raise NotImplementedError(
-            "classify_dynamic(cache=...) needs the HybridCache of the hybrid "
-            "segmented replay, which the PyTorch port does not have yet "
-            "(ROADMAP queue 1, item 5)")
+    from .trace import HybridCache
+    if cache is None:
+        cache = HybridCache()
     base_prog = builder()
-    base = simulate(base_prog)
+    base = simulate(base_prog, hybrid_cache=cache)
     c = classify(base_prog, base)
     if not c.has_nonblocking:
         return c                   # blocking-only cannot be Type C
@@ -113,7 +109,7 @@ def classify_dynamic(builder, n_variants: int = 4,
     ][:n_variants]
     divergent = False
     for dv in variants:
-        r = simulate(builder(), depths=dv)
+        r = simulate(builder(), depths=dv, hybrid_cache=cache)
         if r.outputs != base.outputs or r.deadlock != base.deadlock:
             divergent = True
             break

@@ -22,10 +22,13 @@ changing any argument (or the module bytecode) misses.  The
 incremental-resimulation contract serves *any* candidate depth vector
 from a base run, so one entry answers a design's whole sweep space.
 
-What the reference has and the port does not yet: the shared hybrid-replay
-cache (``HybridCache``, ROADMAP queue 1 item 5), so ``CacheEntry.full_run``
-stays ``None`` and a miss runs ``simulate(program)``; and the delta-aware
-lookup ``get_or_patch`` (item 8), which raises ``NotImplementedError``.
+The cache owns a shared :class:`~repro_torch.core.trace.HybridCache`: a
+cold build of a dynamic (NB/probe) design threads it into ``simulate``, and
+the verified whole-run replay entry that build produced spills onto the
+:class:`CacheEntry` (``full_run``) and is reinstalled on every hit.  What
+the reference has and the port does not yet: the delta-aware lookup
+``get_or_patch`` (ROADMAP queue 1 item 8), which raises
+``NotImplementedError``.
 
 Thread safety: lookups/inserts are lock-protected, and the whole
 fingerprint-and-build path serializes per design on
@@ -49,7 +52,7 @@ from ..core.dse import _batch_arrays, program_mutation_lock
 from ..core.engine import simulate
 from ..core.incremental import CompiledGraph, compile_graph
 from ..core.program import Program, SimResult
-from ..core.trace import program_fingerprint
+from ..core.trace import HybridCache, program_fingerprint
 
 # raised by the reference's delta hooks (edit sessions, patched lookups)
 DELTA_NOT_PORTED = ("this needs the delta layer, which the PyTorch port "
@@ -59,8 +62,8 @@ DELTA_NOT_PORTED = ("this needs the delta layer, which the PyTorch port "
 class CacheEntry:
     """One warm design: base run + hoisted graph + batch view.
 
-    ``full_run`` is the reference's slot for a spilled hybrid whole-run
-    entry; the port has no hybrid replay yet, so it stays ``None``."""
+    ``full_run`` holds the hybrid whole-run replay entry (``_FullRun``)
+    the cold build left in the shared ``HybridCache``, if it made one."""
 
     __slots__ = ("key", "result", "graph", "_batch", "hits", "build_s",
                  "lock", "_graph_blob", "full_run")
@@ -127,14 +130,23 @@ class DeltaLookup:
 
 
 class GraphCache:
-    """Bounded LRU of warm :class:`CacheEntry` objects, keyed by content."""
+    """Bounded LRU of warm :class:`CacheEntry` objects, keyed by content.
 
-    def __init__(self, capacity: int = 8):
+    Owns a shared :class:`~repro_torch.core.trace.HybridCache`: cold builds
+    of dynamic designs thread it into ``simulate`` so their verified
+    ``_FullRun`` entries spill onto the cache entry and reinstall on every
+    hit — served tenants warm each other's hybrid replays.
+    """
+
+    def __init__(self, capacity: int = 8,
+                 hybrid: Optional[HybridCache] = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
         self._entries: "OrderedDict[str, CacheEntry]" = OrderedDict()
         self._lock = threading.Lock()
+        self.hybrid = hybrid if hybrid is not None else HybridCache(
+            max_full=max(8, 2 * capacity))
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -154,6 +166,12 @@ class GraphCache:
             self._entries.move_to_end(key)
             self.hits += 1
             entry.hits += 1
+            if entry.full_run is not None:
+                # reinstall the spilled whole-run entry: a fallback re-sim
+                # of this design at these depths replays instead of
+                # re-interpreting (dict ops are GIL-atomic; peek/store
+                # race at worst re-stores an identical verified entry)
+                self.hybrid.store_full(key, entry.full_run)
             return entry
 
     def insert(self, entry: CacheEntry) -> CacheEntry:
@@ -194,10 +212,24 @@ class GraphCache:
                 return entry
             t0 = _time.perf_counter()
             if base is None:
-                base = simulate_fn(program)
-            graph = compile_graph(base.graph)
-            return self.insert(CacheEntry(
-                key, base, graph, build_s=_time.perf_counter() - t0))
+                if simulate_fn is simulate:
+                    # default path: thread the shared HybridCache so a
+                    # dynamic design's verified _FullRun lands in it
+                    base = simulate(program, hybrid_cache=self.hybrid)
+                else:
+                    base = simulate_fn(program)
+            return self.insert(self._entry_from(key, base, t0))
+
+    def _entry_from(self, key: str, base: SimResult,
+                    t0: float) -> CacheEntry:
+        """Hoist the compiled graph from a base run and spill the hybrid
+        whole-run entry (if the build produced one) onto the entry.  The
+        batch view is built on first use (:attr:`CacheEntry.batch`)."""
+        graph = compile_graph(base.graph)
+        entry = CacheEntry(key, base, graph,
+                           build_s=_time.perf_counter() - t0)
+        entry.full_run = self.hybrid.peek_full(key)
+        return entry
 
     def get_or_patch(self, program, fps, state, delta=None):
         """The reference's delta-aware lookup (exact key → per-module

@@ -311,6 +311,10 @@ class BlockScheduler:
         # never memoized.
         self.memo_capacity = max(int(memo_capacity), 0)
         self._memo: "OrderedDict[tuple, tuple]" = OrderedDict()
+        # shared HybridCache (set by SweepService from its GraphCache):
+        # threaded into fallback re-simulations so repeat fallbacks of a
+        # dynamic design replay its spilled verified whole run
+        self.hybrid = None
         # counters (guarded by _cv's lock)
         self.stats_blocks = 0
         self.stats_blocks_interactive = 0
@@ -782,14 +786,16 @@ class BlockScheduler:
         try:
             results_u, reasons_u = materialize_block(
                 entry.result, Du, status_u, cycles_u, violated_u, fb_mask,
-                engine_label="omnisim-sweep", lock=entry.lock)
+                engine_label="omnisim-sweep", lock=entry.lock,
+                hybrid_cache=self.hybrid)
         except Exception as exc:
             note = f"fallback re-simulation faulted: {exc!r}"
             self.quarantine.strike(entry.key, note)
             results_u, reasons_u = materialize_block(
                 entry.result, Du, status_u, cycles_u, violated_u,
                 np.zeros(len(Du), dtype=bool),
-                engine_label="omnisim-sweep", lock=entry.lock)
+                engine_label="omnisim-sweep", lock=entry.lock,
+                hybrid_cache=self.hybrid)
             for u in range(len(Du)):
                 if fb_mask[u] and status_u[u] != REUSED:
                     reasons_u[u] += f" [{note}]"

@@ -216,6 +216,7 @@ class SweepService:
                                         device=device,
                                         memo_capacity=memo_capacity)
         self.cache = GraphCache(capacity=cache_capacity)
+        self.scheduler.hybrid = self.cache.hybrid
         self.admission = AdmissionController(
             max_inflight_rows_per_tenant=max_inflight_rows_per_tenant,
             max_queued_rows=max_queued_rows)

@@ -568,7 +568,8 @@ def _dynamic_design(name, typea, paper):
 @pytest.mark.parametrize("name", sorted(_DYNAMIC_CASES))
 def test_classify_dynamic_matches_reference(name):
     """The cases of ``tests/test_taxonomy_dynamic.py``: the port's probes
-    run without a hybrid cache and reach the reference's classification."""
+    share the cache ``classify_dynamic`` builds and reach the reference's
+    classification."""
     a = T.classify_dynamic(_dynamic_design(name, ttypea, tpaper))
     b = R.classify_dynamic(_dynamic_design(name, rtypea, rpaper))
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
@@ -576,9 +577,17 @@ def test_classify_dynamic_matches_reference(name):
 
 
 def test_classify_dynamic_with_a_cache_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.classify_dynamic(lambda: ttypea.producer_consumer(n=8),
-                           cache=object())
+    """A passed ``HybridCache`` is used, as in the reference: after
+    classifying a dynamic design its counters equal the reference's."""
+    counts = []
+    for core, paper in ((T, tpaper), (R, rpaper)):
+        cache = core.HybridCache()
+        c = core.classify_dynamic(lambda: paper.fig4_ex4b(n=64), cache=cache)
+        assert c.dtype == "C"
+        counts.append((cache.hits, cache.misses, cache.switches,
+                       cache.divergences, cache.full_hits, cache.full_misses,
+                       cache.full_rejects))
+    assert counts[0] == counts[1] and counts[0][1] > 0
 
 
 # --------------------------------------------------------------------- AXI

@@ -126,10 +126,11 @@ def test_golden_list_matches_reference_records():
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_DESIGNS))
 def test_port_reproduces_golden_record(name):
-    """Generator engine (``trace="never"``), ``"auto"`` (compiled replay
-    where the reference takes it, else the generator engine), ``resimulate``
-    on the variant depths, and ``resimulate_batch`` on the host lane, all
-    bit-identical to the reference's record."""
+    """Generator engine (``trace="never"``), ``"auto"`` (the engine the
+    reference's ``"auto"`` takes: compiled replay, hybrid replay or the
+    generator engine), ``resimulate`` on the variant depths, and
+    ``resimulate_batch`` on the host lane, all bit-identical to the
+    reference's record."""
     golden = _golden(name)
     core = {k: golden[k] for k in ("cycles", "deadlock", "deadlock_cycle",
                                    "outputs", "fifo_digest", "n_constraints",
@@ -139,12 +140,9 @@ def test_port_reproduces_golden_record(name):
     assert _record(g) == core, f"{name}: port's generator engine drifted"
     assert [int(d) for d in g.depths] == golden["depths"]
     a = simulate(make(), trace="auto")
-    # the reference's engine for this design, its hybrid replay read as
-    # the generator engine until the port has it (ROADMAP queue 1, item 5)
     ref_engine = ref_core.simulate(REF_GOLDEN_DESIGNS[name](),
                                    trace="auto").engine
-    assert a.engine == {"omnisim-hybrid": "omnisim"}.get(ref_engine,
-                                                         ref_engine)
+    assert a.engine == ref_engine
     assert _record(a) == core, f"{name}: auto path drifted"
     if "variant" not in golden:
         return
@@ -198,14 +196,20 @@ def test_trace_always_raises_where_the_replay_defers():
 
 
 def test_trace_always_on_an_nb_design_names_hybrid_replay():
-    """Where the reference takes its hybrid replay, ``"always"`` raises
-    ``NotImplementedError`` naming queue 1 item 5, not
-    ``TraceUnsupported``: the reference succeeds there."""
+    """An NB design: ``"always"`` takes the hybrid replay (engine
+    ``"omnisim-hybrid"``) as the reference does, not ``TraceUnsupported``,
+    and gives what ``"auto"`` and the generator engine give."""
     def build():
         return watchdog_pipe(items=16, stages=2, depth=4, poll_gap=16)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        simulate(build(), trace="always")
-    assert simulate(build(), trace="auto").engine == "omnisim"
+    always = simulate(build(), trace="always")
+    assert always.engine == "omnisim-hybrid"
+    auto = simulate(build(), trace="auto")
+    assert auto.engine == "omnisim-hybrid"
+    assert _record(always) == _record(auto) == _record(
+        simulate(build(), trace="never"))
+    ref = ref_core.simulate(ref_dynamic.watchdog_pipe(
+        items=16, stages=2, depth=4, poll_gap=16), trace="always")
+    assert ref.engine == "omnisim-hybrid" and _record(ref) == _record(always)
 
 
 def test_trace_always_with_shuffle_seed_is_an_error():

@@ -18,7 +18,8 @@ import torch
 
 import repro_torch.core.dse as tdse
 from repro_torch.core import compile_graph, resimulate_batch, simulate
-from repro_torch.designs.paper import fig4_ex5
+from repro_torch.designs.dynamic import watchdog_pipe
+from repro_torch.designs.paper import fig2_timer, fig4_ex5
 from repro_torch.designs.typea import (matmul_stream, merge_sort_staged,
                                        producer_consumer, skynet_like)
 from repro_torch.kernels import _cuda
@@ -198,6 +199,52 @@ def test_finalize_times_on_a_trace_graph(dev):
     """Kernel 2 on the trace graph's CSR: its own times, bit for bit."""
     res = simulate(merge_sort_staged(5))
     assert res.engine == "omnisim-trace"
+    before = _cuda.DENSE.launches
+    got = ops.finalize_times(res.graph.graph, device=dev)
+    assert _cuda.DENSE.launches > before
+    assert np.array_equal(got.cpu().numpy(), res.graph.graph.times())
+
+
+@pytest.mark.parametrize("name,build,hi", [
+    ("fig4_ex5", lambda: fig4_ex5(n=256), 8),
+    ("watchdog_pipe", lambda: watchdog_pipe(items=256, stages=3, depth=8,
+                                            poll_gap=16), 16),
+    ("fig2_timer", lambda: fig2_timer(n=128), 8),
+])
+def test_hybrid_built_graph_resolves_like_the_generator_built(dev, name,
+                                                              build, hi):
+    """The hybrid replay's graph (nodes numbered module by module, NB and
+    probe constraints included) and the generator engine's (creation
+    order) through kernel 1: status, cycles and violated counts bit for
+    bit, the same rounds, and against the host lane; and the
+    ``resimulate_batch`` fallback verdicts on the card equal the host
+    lane's."""
+    hy, gen = simulate(build()), simulate(build(), trace="never")
+    assert hy.engine == "omnisim-hybrid" and gen.engine == "omnisim"
+    D = np.random.default_rng(0).integers(1, hi + 1,
+                                          size=(128, len(hy.depths)))
+    before = _cuda.SPARSE.launches
+    a = tdse.solve_block_status(compile_graph(hy.graph), D, backend="cuda",
+                                device=dev)
+    assert _cuda.SPARSE.launches > before
+    b = tdse.solve_block_status(compile_graph(gen.graph), D, backend="cuda",
+                                device=dev)
+    want = tdse.solve_block_status(compile_graph(hy.graph), D[:32],
+                                   backend="numpy")
+    for x, y, z in zip(a[:3], b[:3], want[:3]):
+        assert np.array_equal(x, y), name
+        assert np.array_equal(x[:32], z), name
+    assert a[3] == b[3], name
+    o = resimulate_batch(hy, D[:16], backend="cuda", device=dev)
+    w = resimulate_batch(hy, D[:16], backend="numpy")
+    assert np.array_equal(o.status, w.status) and np.array_equal(o.cycles,
+                                                                 w.cycles)
+
+
+def test_finalize_times_on_a_hybrid_graph(dev):
+    """Kernel 2 on the hybrid graph's CSR: its own times, bit for bit."""
+    res = simulate(fig4_ex5(n=256))
+    assert res.engine == "omnisim-hybrid"
     before = _cuda.DENSE.launches
     got = ops.finalize_times(res.graph.graph, device=dev)
     assert _cuda.DENSE.launches > before

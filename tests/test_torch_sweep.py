@@ -35,6 +35,7 @@ import repro_torch.sweep as port_sweep
 from repro_torch.kernels import _cuda
 from repro_torch.sweep import cache as port_cache
 from repro_torch.sweep.search import _feasible_mask
+from test_torch_hybrid import _counters
 
 REF = SimpleNamespace(core=ref_core, sweep=ref_sweep, typea=ref_typea,
                       paper=ref_paper)
@@ -72,11 +73,10 @@ def _seen(out):
 
 
 def _stats(svc):
-    """The service's stats, but for the cache's hybrid-replay count (the
-    port has no hybrid replay) and the design keys."""
+    """The service's stats (they hold no design key)."""
     st = svc.stats()
     st["cache"] = {k: st["cache"][k] for k in ("size", "hits", "misses",
-                                               "evictions")}
+                                               "evictions", "full_runs")}
     return st
 
 
@@ -95,6 +95,32 @@ def mixed_statuses(pkg, lane):
     direct = pkg.core.resimulate_batch(base, D, backend="numpy")
     assert _seen(out)["cycles"] == _seen(direct)["cycles"]
     return _seen(out), _stats(svc)
+
+
+def repeated_fallback(pkg, lane):
+    """fig4_ex5's violated rows fall back to the hybrid replay with the
+    service's shared HybridCache: a repeat sweep replays the verified
+    whole runs its first fallbacks stored, the cold build's run spills
+    onto the cache entry, and a cache hit reinstalls it."""
+    build = lambda: pkg.paper.fig4_ex5(n=256)
+    D = np.array([(1, 1), (2, 2), (64, 64), (2, 100), (1, 3)])
+    seen = []
+    with _service(pkg, lane, block=8) as svc:
+        assert svc.scheduler.hybrid is svc.cache.hybrid
+        for _ in range(2):
+            seen += [_seen(svc.sweep(build(), D)),
+                     _counters(svc.cache.hybrid)]
+        (entry,) = svc.cache._entries.values()
+        assert entry.result.engine == "omnisim-hybrid"
+        assert entry.full_run is not None
+        assert svc.stats()["cache"]["full_runs"] == 1
+        fallbacks = svc.stats()["scheduler"]["fallbacks"]
+        assert seen[3]["full_hits"] - seen[1]["full_hits"] == fallbacks // 2
+        svc.cache.hybrid._full.clear()
+        seen.append(_seen(svc.sweep(build(), D)))
+        assert svc.cache.hybrid.peek_full(entry.key) is entry.full_run
+        seen.append(_counters(svc.cache.hybrid))
+    return seen, _stats(svc)
 
 
 def deadlock_rows(pkg, lane):
@@ -153,7 +179,8 @@ def memo_repeats(pkg, lane):
 
 @pytest.mark.parametrize("lane", PORT_LANES)
 @pytest.mark.parametrize("scenario", [mixed_statuses, deadlock_rows,
-                                      tenants_with_duplicates, memo_repeats],
+                                      tenants_with_duplicates, memo_repeats,
+                                      repeated_fallback],
                          ids=lambda f: f.__name__)
 def test_served_rows_match_the_reference(scenario, lane):
     assert scenario(PORT, lane) == _ref(scenario)
@@ -509,39 +536,64 @@ def test_launch_counts_survive_shard_threads():
 
 # ------------------------------------------------------------------ cache
 def test_cache_hit_miss_eviction_stats():
-    calls = []
+    """Hits, misses and evictions; ``full_runs`` counts the entries whose
+    cold build (default path) left a hybrid whole run, as in the
+    reference."""
+    def run(pkg):
+        calls = []
 
-    def counting_sim(program, **kw):
-        calls.append(program.name)
-        return port_core.simulate(program, **kw)
+        def counting_sim(program, **kw):
+            calls.append(program.name)
+            return pkg.core.simulate(program, **kw)
 
-    cache = port_sweep.GraphCache(capacity=1)
-    e1 = cache.get_or_build(port_typea.producer_consumer(n=32, depth=2),
-                            simulate_fn=counting_sim)
-    e1b = cache.get_or_build(port_typea.producer_consumer(n=32, depth=2),
-                             simulate_fn=counting_sim)
-    assert e1 is e1b and len(calls) == 1 and e1.build_s > 0
-    cache.get_or_build(port_typea.skynet_like(items=24, depth=4),
-                       simulate_fn=counting_sim)
-    st = cache.stats()
-    assert st["evictions"] == 1 and st["size"] == 1
-    cache.get_or_build(port_typea.producer_consumer(n=32, depth=2),
-                       simulate_fn=counting_sim)
-    assert len(calls) == 3
-    st = cache.stats()
-    assert st["hits"] == 1 and st["misses"] == 3
-    assert st["hit_rate"] == pytest.approx(0.25)
-    assert st["full_runs"] == st["delta_hits"] == st["delta_rejects"] == 0
+        cache = pkg.sweep.GraphCache(capacity=1)
+        e1 = cache.get_or_build(pkg.typea.producer_consumer(n=32, depth=2),
+                                simulate_fn=counting_sim)
+        e1b = cache.get_or_build(pkg.typea.producer_consumer(n=32, depth=2),
+                                 simulate_fn=counting_sim)
+        assert e1 is e1b and len(calls) == 1 and e1.build_s > 0
+        cache.get_or_build(pkg.typea.skynet_like(items=24, depth=4),
+                           simulate_fn=counting_sim)
+        st = cache.stats()
+        assert st["evictions"] == 1 and st["size"] == 1
+        cache.get_or_build(pkg.typea.producer_consumer(n=32, depth=2),
+                           simulate_fn=counting_sim)
+        assert len(calls) == 3
+        st = cache.stats()
+        assert st["hits"] == 1 and st["misses"] == 3
+        assert st["hit_rate"] == pytest.approx(0.25)
+        assert st["full_runs"] == st["delta_hits"] == st["delta_rejects"] == 0
+        # the default path threads the shared HybridCache: a dynamic
+        # design's entry carries its whole run
+        cache.get_or_build(pkg.paper.fig4_ex5(n=64))
+        seen = [st, cache.stats(), _counters(cache.hybrid)]
+        assert seen[1]["full_runs"] == 1
+        return seen
+
+    assert run(PORT) == run(REF)
     with pytest.raises(ValueError):
         port_sweep.GraphCache(capacity=0)
 
 
 def test_cache_accepts_existing_base_result():
-    base = port_core.simulate(port_typea.producer_consumer(n=32, depth=2))
-    entry = port_sweep.GraphCache().get_or_build(base)
-    assert entry.result is base
-    assert entry.graph is port_core.compile_graph(base.graph)
-    assert entry.full_run is None
+    """A base result only hoists the graph; ``full_run`` is what the shared
+    HybridCache holds under the design's key, as in the reference."""
+    def run(pkg):
+        base = pkg.core.simulate(pkg.typea.producer_consumer(n=32, depth=2))
+        entry = pkg.sweep.GraphCache().get_or_build(base)
+        assert entry.result is base
+        assert entry.graph is pkg.core.compile_graph(base.graph)
+        assert entry.full_run is None
+        hybrid = pkg.core.HybridCache()
+        dyn = pkg.core.simulate(pkg.paper.fig4_ex5(n=64),
+                                hybrid_cache=hybrid)
+        bare = pkg.sweep.GraphCache().get_or_build(dyn)
+        shared = pkg.sweep.GraphCache(hybrid=hybrid).get_or_build(dyn)
+        assert bare.full_run is None and shared.full_run is not None
+        return (dyn.engine, shared.full_run.n_rows,
+                _counters(hybrid))
+
+    assert run(PORT) == run(REF)
 
 
 def test_graph_blob_ships_the_graph_without_its_views():

@@ -451,12 +451,12 @@ _ALL_AUTO = {**{f"typea/{k}": (v, _typea_small(rtypea)[k])
 
 @pytest.mark.parametrize("name", sorted(_ALL_AUTO))
 def test_auto_path_matches_reference(name):
-    """``simulate(trace="auto")`` takes compiled replay exactly where the
-    reference does; where the reference takes its hybrid replay the port
-    takes the generator engine, with the same results."""
+    """``simulate(trace="auto")`` takes the reference's path for every
+    design — compiled replay, hybrid replay or the generator engine — with
+    the same results."""
     mine_b, ref_b = _ALL_AUTO[name]
     a, b = simulate(mine_b()), R.simulate(ref_b())
-    assert a.engine == {"omnisim-hybrid": "omnisim"}.get(b.engine, b.engine)
+    assert a.engine == b.engine
     _same_results(b, a, name)
     for f in ("nodes", "edges", "queries", "queries_forced_false",
               "skipped_probes"):
@@ -655,19 +655,24 @@ def test_spsc_violation_in_compile_trace():
 
 def test_dynamic_design_takes_the_generator_engine():
     """An NB outcome steering control flow: the straight-line replay raises
-    a dynamic ``TraceUnsupported``; ``"auto"`` gives the generator's result
-    (the reference's hybrid result), ``"always"`` names queue 1 item 5."""
+    a dynamic ``TraceUnsupported``, and ``"auto"`` and ``"always"`` both
+    take the hybrid replay, as the reference does, with the generator
+    engine's result.  The generator engine stays the path of
+    ``"never"``."""
     with pytest.raises(TraceUnsupported) as e:
         simulate_traced(_poll(tdsl))
     assert e.value.dynamic
     r = simulate(_poll(tdsl), trace="auto")
-    assert r.engine == "omnisim" and r.outputs == {"polls": 12}
-    _same_results(simulate(_poll(tdsl), trace="never"), r)
+    assert r.engine == "omnisim-hybrid" and r.outputs == {"polls": 12}
+    gen = simulate(_poll(tdsl), trace="never")
+    assert gen.engine == "omnisim"
+    _same_results(gen, r)
     ref = R.simulate(_poll(rdsl), trace="always")
     assert ref.engine == "omnisim-hybrid"
     _same_results(ref, r)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        simulate(_poll(tdsl), trace="always")
+    always = simulate(_poll(tdsl), trace="always")
+    assert always.engine == "omnisim-hybrid"
+    _same_results(ref, always)
 
 
 def test_shuffle_seed_uses_generator_path():
