@@ -171,7 +171,32 @@ Phases, each printing its own line:
            as a Program) twice, rows equal to the direct solve.
      Kernel 1's and kernel 2's launch counts are zeroed just before and
      read just after (b) and (c); the full GC passes inside each window
-     are counted.  The run's total time is printed last.
+     are counted;
+  18. the design corpus and edit sessions (``repro_torch.corpus``,
+     ``repro_torch.delta``), at the reference's sizes:
+       (a) ``check_conformance(..., device="cuda")`` on
+           ``generate(2, scale=300)`` and ``generate(0, scale=1000)``:
+           every engine path ``"ok"``, the ``"cuda"`` and ``"sweep"``
+           paths on the card; then each path alone, timed less the
+           generator-only call;
+       (b) the reference's edit-session scenario
+           (``benchmarks/tables.py::table_delta_resim``): the 7 pairs of
+           ``edit_pairs(11, scale=300, spec=BLOCKING_SPEC.replace(
+           items=IntRange(48, 96)))``, each through a fresh
+           ``SweepService().edit_session(base).update(edited)``: the
+           expected mode (``delay`` and ``retype`` patched, the rest
+           cold), the served result equal to a cold ``simulate``; cold
+           and update times as medians of 3, the ``delay`` speedup, the
+           worst patched reuse and the reject rate;
+       (c) the ``delay``-patched session's ``sweep`` of K 4096 rows (the
+           edited depths plus ``default_rng(0).integers(0, 5)``) at the
+           service's block of 128, against a direct ``resimulate_batch(
+           backend="cuda")`` on a cold-built base (all rows) and
+           ``backend="numpy"`` (64 rows); kernel 1 from the patched and
+           the cold-built graph: ms, rounds, bound, peak memory.
+     Kernel 1's launch count is zeroed just before and read just after
+     each of (a)-(c); the full GC passes inside each window are counted.
+     The run's total time is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
 float32 comparisons measure the kernels, not TF32.  The last two lines are
@@ -340,6 +365,9 @@ def main():
                                            matmul_stream, merge_sort_staged,
                                            skynet_like)
     from repro_torch.configs import get_arch
+    from repro_torch.corpus import (BLOCKING_SPEC, EDIT_KINDS, ENGINE_PATHS,
+                                    IntRange, check_conformance, edit_pairs,
+                                    generate, result_record)
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1902,6 +1930,27 @@ def main():
         n_gc, s_gc = full_gc_since(t0)
         return f"full GC passes in the window: {n_gc}, {s_gc:.3f} s"
 
+    def kernel1_alone(g, D):
+        """Kernel 1 alone on g's device arrays over the rows of D that can
+        commit, held against its plain version: (CUDA-event ms a solve,
+        rounds launched, rounds the fixpoint needs, bound ms, max abs
+        err, E, m, K)."""
+        ba = dse._batch_arrays(g)
+        Dc = D[~(D < ba.fifo_need[None, :]).any(axis=1)]
+        arr = dse._sparse_arrays(ba, dev)
+        Dt = torch.from_numpy(np.minimum(Dc, 1 << 30)
+                              .astype(np.int32)).to(dev)
+        got = {}
+        ms = cuda_time(lambda: got.__setitem__(
+            "k", sparse.solve_chains(arr, Dt)), 3)
+        plain = ref.solve_chains_ref(arr, Dt)
+        err = same_solve(got["k"], plain)
+        E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
+        rounds, K = plain[2], Dt.shape[0]
+        bound_ms = (4 * K * (2 * g.n + 2 * (E + m)) * rounds
+                    / HBM_BYTES_PER_S * 1e3)
+        return ms, got["k"][2], rounds, bound_ms, err, E, m, K
+
     def same_queries(a, b, what):
         check((a.stats.queries, a.stats.queries_forced_false,
                a.stats.skipped_probes, len(a.constraints))
@@ -1976,23 +2025,8 @@ def main():
                 check(np.array_equal(st_h[0], o5.status)
                       and np.array_equal(st_h[2], o5.violated),
                       "fig4_ex5: verdicts differ from phase 5's")
-            per = {}
-            for src, g in (("hybrid", g_h), ("generator", g_g)):
-                ba = dse._batch_arrays(g)
-                Da_ = D[~(D < ba.fifo_need[None, :]).any(axis=1)]
-                arr = dse._sparse_arrays(ba, dev)
-                Dt = torch.from_numpy(np.minimum(Da_, 1 << 30)
-                                      .astype(np.int32)).to(dev)
-                got = {}
-                ms = cuda_time(lambda: got.__setitem__(
-                    "k", sparse.solve_chains(arr, Dt)), 3)
-                plain = ref.solve_chains_ref(arr, Dt)
-                err = same_solve(got["k"], plain)
-                E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
-                rounds, K = plain[2], Dt.shape[0]
-                bound_ms = (4 * K * (2 * g.n + 2 * (E + m)) * rounds
-                            / HBM_BYTES_PER_S * 1e3)
-                per[src] = (ms, got["k"][2], rounds, bound_ms, err, E, m, K)
+            per = {src: kernel1_alone(g, D)
+                   for src, g in (("hybrid", g_h), ("generator", g_g))}
             (ms_h, l_h, need, bnd, err, E, m, K) = per["hybrid"]
             ms_g, l_g = per["generator"][:2]
             check(l_h == l_g and need == per["generator"][2],
@@ -2132,12 +2166,168 @@ def main():
             f"rows equal to the direct solve; {gc_note(t_w)} [{card}]")
     gc.callbacks.remove(on_gc)
 
+    # --------------------------------------------------------------- 18
+    gc.callbacks.append(on_gc)
+    delta_launches, k1_delta = {}, {}
+    with phase("18 (a) corpus conformance on the card"):
+        for seed, scale in ((2, 300), (0, 1000)):
+            c = generate(seed, scale=scale)
+            t_w = time.perf_counter()
+            _cuda.SPARSE.reset_counts()
+            t0 = time.perf_counter()
+            rep = check_conformance(c.builder, name=c.name, device="cuda")
+            sync()
+            s_all = time.perf_counter() - t0
+            launches = _cuda.SPARSE.launches
+            check(tuple(sorted(rep.paths)) == tuple(sorted(ENGINE_PATHS))
+                  and all(v == "ok" for v in rep.paths.values()),
+                  f"{c.name}: {rep.paths}")
+            check(launches > 0, f"{c.name}: kernel 1 not launched")
+            delta_launches[f"conformance {c.name}"] = launches
+            # each path alone: its call less the generator-only call
+            t0 = time.perf_counter()
+            check_conformance(c.builder, name=c.name, device="cuda",
+                              paths=())
+            s_gen = time.perf_counter() - t0
+            per = {"generator": s_gen}
+            for path in ENGINE_PATHS[1:]:
+                t0 = time.perf_counter()
+                r = check_conformance(c.builder, name=c.name, device="cuda",
+                                      paths=(path,))
+                sync()
+                per[path] = time.perf_counter() - t0 - s_gen
+                check(r.paths[path] == "ok", f"{c.name} {path} alone: "
+                      f"{r.paths[path]}")
+            res = simulate(c.builder())
+            log(f"  {c.name}: {c.meta['modules']} modules, "
+                f"{c.meta['fifos']} FIFOs, engine {res.engine} "
+                f"({res.stats.nodes} nodes, cycles {res.cycles}); all "
+                f"{len(rep.paths)} paths ok in {s_all:.3f} s (kernel 1 "
+                f"launches {launches}); each path alone, less the "
+                f"generator: " + ", ".join(f"{k} {v:.3f} s"
+                                           for k, v in per.items())
+                + f"; {gc_note(t_w)} [{card}]")
+
+    pairs18 = {}
+    with phase("18 (b) edit sessions at full width (7 edit pairs)"):
+        spec = BLOCKING_SPEC.replace(items=IntRange(48, 96))
+        pairs18 = {p.kind: p for p in edit_pairs(11, scale=300, spec=spec)}
+        check(tuple(pairs18) == EDIT_KINDS, f"kinds {tuple(pairs18)}")
+        simulate(pairs18["delay"].base())          # untimed warm-up
+        t_w = time.perf_counter()
+        _cuda.SPARSE.reset_counts()
+        seen = {}
+        for kind, p in pairs18.items():
+            s_cold, s_upd = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                cold = simulate(p.edited())
+                s_cold.append(time.perf_counter() - t0)
+                svc = SweepService()
+                try:
+                    sess = svc.edit_session(p.base())
+                    edited = p.edited()
+                    t0 = time.perf_counter()
+                    eo = sess.update(edited)
+                    s_upd.append(time.perf_counter() - t0)
+                    check(eo.mode == p.expect, f"{kind}: served {eo.mode}, "
+                          f"want {p.expect} ({eo.reason})")
+                    check(result_record(sess.entry.result)
+                          == result_record(cold), f"{kind}: served result "
+                          f"differs from a cold simulate")
+                finally:
+                    svc.close()
+            seen[kind] = (eo, statistics.median(s_cold),
+                          statistics.median(s_upd))
+            log(f"  {kind}: {eo.mode}, reuse {eo.reuse_fraction:.4f} "
+                f"({eo.reused_modules} of {eo.total_modules} modules), "
+                f"reason {eo.reason!r}; cold simulate "
+                f"{seen[kind][1]:.4f} s ({cold.engine}, {cold.stats.nodes} "
+                f"nodes, {len(cold.depths)} FIFOs, cycles {cold.cycles}), "
+                f"update {seen[kind][2]:.4f} s (medians of 3) [{card}]")
+        delta_launches["edit sessions"] = _cuda.SPARSE.launches
+        patched = [eo for eo, _, _ in seen.values() if eo.mode == "patched"]
+        rejects = sum(eo.mode != "patched" for eo, _, _ in seen.values())
+        _, c_d, u_d = seen["delay"]
+        log(f"  delay speedup (cold simulate over update) {c_d / u_d:.2f}x; "
+            f"worst patched reuse "
+            f"{min(eo.reuse_fraction for eo in patched):.4f}; reject rate "
+            f"{rejects / len(seen):.4f} ({rejects}/{len(seen)}); "
+            f"{gc_note(t_w)} [{card}]")
+
+    with phase("18 (c) the patched design through kernel 1"):
+        p = pairs18["delay"]
+        svc = SweepService()
+        try:
+            sess = svc.edit_session(p.base())
+            check(sess.update(p.edited()).mode == "patched",
+                  "delay not patched")
+            d0 = np.asarray(sess.program.depths(), np.int64)
+            D18 = d0[None, :] + np.random.default_rng(0).integers(
+                0, 5, size=(4096, len(d0)))
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**30
+            _cuda.SPARSE.reset_counts()
+            t_w = time.perf_counter()
+            t0 = time.perf_counter()
+            o_srv = sess.sweep(D18)
+            sync()
+            s_srv = time.perf_counter() - t0
+            delta_launches["served sweep"] = _cuda.SPARSE.launches
+            g_p = sess.entry.graph
+        finally:
+            svc.close()
+        check(delta_launches["served sweep"] > 0, "kernel 1 not launched")
+        check(bool((o_srv.status == dse.REUSED).all()),
+              "a row of growing depths did not stay live")
+        cold = simulate(p.edited())
+        g_c = compile_graph(cold.graph)
+        check(g_c.n == g_p.n, f"node counts differ: {g_c.n} vs {g_p.n}")
+        t0 = time.perf_counter()
+        o_dir = resimulate_batch(cold, D18, backend="cuda", device=dev)
+        sync()
+        s_dir = time.perf_counter() - t0
+        same_outcome(o_srv, o_dir, "served (patched) vs direct (cold)")
+        peak_path = torch.cuda.max_memory_allocated() / 2**30 - held
+        o_np = resimulate_batch(cold, D18[:64], backend="numpy")
+        same_status((o_srv.status[:64], o_srv.cycles[:64],
+                     o_srv.violated[:64]),
+                    (o_np.status, o_np.cycles, o_np.violated),
+                    "served vs numpy (64 rows)")
+        per = {src: kernel1_alone(g, D18)
+               for src, g in (("patched", g_p), ("cold", g_c))}
+        peak = torch.cuda.max_memory_allocated() / 2**30 - held
+        (ms_p, l_p, need, bnd, err, E, m, K) = per["patched"]
+        ms_c, l_c, need_c = per["cold"][:3]
+        check(l_p == l_c and need == need_c,
+              f"kernel rounds differ: {l_p}/{need} vs {l_c}/{need_c}")
+        k1_delta.update(shape=f"delay-patched corpus design (n={g_p.n}, "
+                        f"E={E}, m={m}, K={K})", ms=ms_p, bound_ms=bnd,
+                        rounds=need, launched=l_p, max_abs_err=err)
+        log(f"  delay-patched design (n={g_p.n}, E={E}, m={m}, K={K}, "
+            f"{len(d0)} FIFOs): served {s_srv:.3f} s at block 128 "
+            f"({K / s_srv:.0f} configs/s; kernel 1 launches "
+            f"{delta_launches['served sweep']}), direct resimulate_batch "
+            f"on the cold-built base {s_dir:.3f} s; rows bit-identical, "
+            f"and to numpy on 64; kernel 1 per solve {ms_p:.3f} ms from "
+            f"the patched graph, {ms_c:.3f} ms from the cold-built "
+            f"({ms_p / ms_c:.3f}x); {l_p} rounds launched, {need} needed; "
+            f"bound {bnd:.4f} ms, {1e3 * bnd / need:.2f} us a round, "
+            f"{1e3 * ms_p / l_p:.2f} us a launched round; peak device "
+            f"memory above the {held:.3f} GiB held before: "
+            f"{peak_path:.3f} GiB over the served and direct calls, "
+            f"{peak:.3f} GiB with the plain versions' [n, K] arrays; "
+            f"{gc_note(t_w)} [{card}]")
+    gc.callbacks.remove(on_gc)
+
     for k in kernels:
         if k["name"] == "maxplus_sparse_fixpoint":
             k["launches_service"] = service_launches
             k["launches_trace_resolves"] = trace_launches
             k["launches_hybrid_resolves"] = hybrid_launches
             k["hybrid_resolves"] = k1_hybrid
+            k["launches_delta"] = delta_launches
+            k["delta_resolve"] = k1_delta
         if k["name"] == "maxplus_dense_sweep":
             k["launches_trace_finalize"] = trace_dense.get("launches")
             k["launches_hybrid_finalize"] = hybrid_dense.get("launches")

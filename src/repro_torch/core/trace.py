@@ -155,7 +155,7 @@ class ModuleTrace:
     lead: int = 0
     reps: int = 1
     # set by periodize() when the search found nothing, so re-periodizing
-    # a trace (the reference's delta patch path periodizes spliced
+    # a trace (the delta patch path, ``delta/patch.py``, periodizes spliced
     # recordings whose unchanged modules were already scanned) skips the
     # O(L^2) re-search
     no_period: bool = False
@@ -241,11 +241,11 @@ class RecordedTrace:
     steps: int = 0
     activations: int = 0
     # --- optional functional capture (record_trace(keep_values=True)) ---
-    # the delta layer (not ported yet) needs the *values* that flowed, not
-    # just the op skeleton: per-FIFO written-value streams (complete, in
-    # write order — SPSC means one writer per FIFO so this is also that
-    # writer's per-FIFO write stream), per-module Emit records in emit
-    # order, and per-module dead-probe counts.  None unless captured.
+    # the delta layer (``repro_torch.delta``) needs the *values* that
+    # flowed, not just the op skeleton: per-FIFO written-value streams
+    # (complete, in write order — SPSC means one writer per FIFO so this is
+    # also that writer's per-FIFO write stream), per-module Emit records in
+    # emit order, and per-module dead-probe counts.  None unless captured.
     values: Optional[List[list]] = None          # [fid] -> written values
     module_emits: Optional[List[list]] = None    # [mid] -> [(key, value)]
     module_skips: Optional[List[int]] = None     # [mid] -> dead probes
@@ -596,7 +596,7 @@ def _cross_buckets(ct: CompiledTrace, war_dst: np.ndarray,
 
     Pure function of the trace skeleton + WAR edge set, so a caller may
     cache the result and reuse it whenever the skeleton and depth vector
-    are unchanged (the reference's delta patch path does).
+    are unchanged (the delta patch path, ``delta/patch.py``, does).
     """
     out_buckets: Dict[int, List[Tuple[int, np.ndarray, np.ndarray]]] = {}
     for dst, src in ((ct.raw_dst, ct.raw_src), (war_dst, war_src)):
@@ -868,7 +868,7 @@ def _fp_plain(obj, depth: int = 0) -> bool:
     return False
 
 
-def _fp_update(h, obj, depth: int = 0, fifo_depth: bool = True,
+def _fp_update(h, obj, depth: int = 0, fifo_depth=True,
                memo: Optional[dict] = None) -> None:
     """Feed ``obj`` into hash ``h`` by *content*, not identity.
 
@@ -984,7 +984,12 @@ def _fp_update(h, obj, depth: int = 0, fifo_depth: bool = True,
         h.update(repr(obj.co_names).encode())
         h.update(b")")
     elif isinstance(obj, Fifo):
-        if fifo_depth:
+        if fifo_depth == "blind":
+            # position-free placeholder: the delta layer's *body* hash must
+            # not change when a FIFO is renamed or re-depthed — only the
+            # bytecode/constants matter there (``repro_torch.delta``)
+            h.update(b"Fifo(_)")
+        elif fifo_depth:
             h.update(f"Fifo({obj.name},{obj.depth})".encode())
         else:
             h.update(f"Fifo({obj.name})".encode())
@@ -1042,16 +1047,18 @@ def _fp_update(h, obj, depth: int = 0, fifo_depth: bool = True,
         h.update(repr(obj).encode())
 
 
-def module_content_hash(fn, fifo_depth: bool = True,
+def module_content_hash(fn, fifo_depth=True,
                         memo: Optional[dict] = None) -> str:
     """Content hash of one module generator function (sha256 hex digest).
 
     Hashes bytecode + constants + defaults + closure contents + referenced
     globals via :func:`_fp_update`.  ``fifo_depth`` selects how captured
-    FIFOs enter the hash: ``True`` by name+depth, ``False`` by name only.
-    ``memo`` is a per-design shared-capture digest cache (see
-    :func:`_fp_update`); all modules of one design must share one memo per
-    flavor.
+    FIFOs enter the hash: ``True`` by name+depth (the exact-key flavor),
+    ``False`` by name only (the hybrid cache's depth-insensitive flavor),
+    ``"blind"`` as a position-free placeholder (the delta layer's *body*
+    hash — invariant under FIFO renames and re-depthing).  ``memo`` is a
+    per-design shared-capture digest cache (see :func:`_fp_update`); all
+    modules of one design must share one memo per flavor.
     """
     h = hashlib.sha256()
     _fp_update(h, fn, fifo_depth=fifo_depth, memo=memo)
@@ -1156,14 +1163,16 @@ def simulate_traced(program: Program,
 def build_traced_result(program: Program, rec: RecordedTrace,
                         ct: CompiledTrace, times: np.ndarray,
                         war_dst: np.ndarray, war_src: np.ndarray,
-                        sweeps: int) -> SimResult:
+                        sweeps: int, graph=None) -> SimResult:
     """Assemble the trace path's :class:`SimResult` + engine shell.
 
-    Used by :func:`simulate_traced` (cold record; the reference's delta
-    patch shares it for spliced re-records): given a solved trace, build an
-    engine shell so downstream consumers (incremental, DSE, taxonomy,
+    Used by :func:`simulate_traced` (cold record) and by the delta patch
+    (``delta/patch.py``, spliced re-records): given a solved trace, build
+    an engine shell so downstream consumers (incremental, DSE, taxonomy,
     ``kernels.maxplus.ops.finalize_times``) see exactly the generator
-    engine's end state.
+    engine's end state.  ``graph`` optionally supplies an already-built
+    ``to_compiled_graph(ct)`` (the patch path builds one for verification
+    anyway) so it isn't rebuilt here.
     """
     depths = program.depths()
     cycles = int(times.max()) if ct.n else 0
@@ -1198,7 +1207,7 @@ def build_traced_result(program: Program, rec: RecordedTrace,
     stats.resumes = rec.activations          # scheduler (re)activations
     stats.skipped_probes = rec.skipped_probes
     stats.quiescence_rounds = sweeps
-    engine._incr_cache = to_compiled_graph(ct)
+    engine._incr_cache = graph if graph is not None else to_compiled_graph(ct)
     engine._trace = rec.periodize()          # compact steady-state storage
     return SimResult(
         program=program.name,

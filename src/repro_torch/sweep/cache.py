@@ -25,10 +25,10 @@ from a base run, so one entry answers a design's whole sweep space.
 The cache owns a shared :class:`~repro_torch.core.trace.HybridCache`: a
 cold build of a dynamic (NB/probe) design threads it into ``simulate``, and
 the verified whole-run replay entry that build produced spills onto the
-:class:`CacheEntry` (``full_run``) and is reinstalled on every hit.  What
-the reference has and the port does not yet: the delta-aware lookup
-``get_or_patch`` (ROADMAP queue 1 item 8), which raises
-``NotImplementedError``.
+:class:`CacheEntry` (``full_run``) and is reinstalled on every hit.  The
+delta-aware lookup :meth:`GraphCache.get_or_patch` (exact key, then a
+per-module patch, then a cold build; ``repro_torch.delta``) serves edit
+sessions.
 
 Thread safety: lookups/inserts are lock-protected, and the whole
 fingerprint-and-build path serializes per design on
@@ -46,17 +46,15 @@ import pickle
 import threading
 import time as _time
 from collections import OrderedDict
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 from ..core.dse import _batch_arrays, program_mutation_lock
 from ..core.engine import simulate
 from ..core.incremental import CompiledGraph, compile_graph
 from ..core.program import Program, SimResult
 from ..core.trace import HybridCache, program_fingerprint
-
-# raised by the reference's delta hooks (edit sessions, patched lookups)
-DELTA_NOT_PORTED = ("this needs the delta layer, which the PyTorch port "
-                    "does not have yet (ROADMAP queue 1, item 8: delta)")
+from ..delta.fingerprint import DesignDelta, DesignFingerprint, diff
+from ..delta.patch import DeltaState, apply_patch, cold_build
 
 
 class CacheEntry:
@@ -121,12 +119,20 @@ class CacheEntry:
         return self._graph_blob
 
 
-class DeltaLookup:
-    """The reference's result type of :meth:`GraphCache.get_or_patch`;
-    delta is not ported yet, so it cannot be built."""
+class DeltaLookup(NamedTuple):
+    """Result of the delta-aware lookup tiers (:meth:`GraphCache.get_or_patch`).
 
-    def __new__(cls, *args, **kwargs):
-        raise NotImplementedError(DELTA_NOT_PORTED)
+    ``mode`` is the reuse tier that answered: ``"exact"`` (whole-key hit),
+    ``"patched"`` (per-module partial hit) or ``"cold"`` (miss / rejected
+    patch).  ``state`` is the refreshed delta snapshot when one exists.
+    """
+
+    entry: CacheEntry
+    mode: str
+    reason: str
+    state: Optional[DeltaState]
+    reused_modules: int
+    total_modules: int
 
 
 class GraphCache:
@@ -231,10 +237,53 @@ class GraphCache:
         entry.full_run = self.hybrid.peek_full(key)
         return entry
 
-    def get_or_patch(self, program, fps, state, delta=None):
-        """The reference's delta-aware lookup (exact key → per-module
-        patch → cold build); not ported yet."""
-        raise NotImplementedError(DELTA_NOT_PORTED)
+    def get_or_patch(self, program: Program, fps: DesignFingerprint,
+                     state: Optional[DeltaState],
+                     delta: Optional["DesignDelta"] = None) -> DeltaLookup:
+        """Delta-aware lookup: exact-key hit → per-module patch → cold.
+
+        The tiers, in order: (1) ``fps.key`` already cached (another
+        tenant — or a previous edit — built this exact design): reuse it
+        outright.  (2) ``state`` holds a recorded snapshot and the delta
+        from it is patchable: re-record only the edited modules, splice,
+        verify (``repro_torch.delta.patch``) — a verification reject falls
+        through.  (3) cold rebuild (capturing a fresh snapshot for
+        traceable designs).  ``delta_hits``/``delta_rejects`` count tier-2
+        outcomes and surface in :meth:`stats`.
+
+        ``delta`` optionally supplies the caller's already-classified
+        ``diff(state.fps, fps)`` (the edit session computes one for its
+        outcome report) so it isn't recomputed here.
+        """
+        total = len(fps.modules)
+        with program_mutation_lock(program):
+            entry = self.lookup(fps.key)
+            if entry is not None:
+                return DeltaLookup(entry, "exact", "", None, total, total)
+            t0 = _time.perf_counter()
+            reason = ""
+            if state is not None:
+                if delta is None:
+                    delta = diff(state.fps, fps)
+                if delta.patchable:
+                    out = apply_patch(state, program, delta=delta,
+                                      new_fps=fps)
+                    if out.ok:
+                        entry = self.insert(
+                            self._entry_from(fps.key, out.result, t0))
+                        with self._lock:
+                            self.delta_hits += 1
+                        return DeltaLookup(entry, "patched", "", out.state,
+                                           out.reused_modules, total)
+                    reason = out.reason
+                else:
+                    reason = delta.reason
+                with self._lock:
+                    self.delta_rejects += 1
+            base, new_state = cold_build(program, hybrid_cache=self.hybrid,
+                                         fps=fps)
+            entry = self.insert(self._entry_from(fps.key, base, t0))
+            return DeltaLookup(entry, "cold", reason, new_state, 0, total)
 
     def stats(self) -> Dict[str, float]:
         with self._lock:

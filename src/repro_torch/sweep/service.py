@@ -58,7 +58,7 @@ from ..core.dse import (CANCELLED, REJECTED, BatchOutcome,
 from ..core.program import Program, SimResult
 from ..core.trace import program_fingerprint
 from .admission import DEFAULT_TENANT, AdmissionController
-from .cache import DELTA_NOT_PORTED, GraphCache
+from .cache import GraphCache
 from .faults import DesignQuarantine, FaultInjector, RetryPolicy
 from .scheduler import (BULK, INTERACTIVE, _DONE, BlockScheduler,
                         ConfigResult, _Request)
@@ -299,10 +299,23 @@ class SweepService:
         request path); returns the warm entry."""
         return self.cache.get_or_build(design, key=key)
 
-    def edit_session(self, design: Program, key: Optional[str] = None):
-        """The reference's interactive edit-and-resimulate session; it
-        needs the delta layer, which is not ported yet."""
-        raise NotImplementedError(DELTA_NOT_PORTED)
+    def edit_session(self, design: Program,
+                     key: Optional[str] = None) -> "EditSession":
+        """Open an interactive edit-and-resimulate session on ``design``.
+
+        Returns a :class:`repro_torch.delta.EditSession`: call
+        ``update(new_program)`` after each code edit and the service
+        re-records only what the structural delta requires (exact-key hit
+        → per-module trace patch → cold rebuild, see ``repro_torch.delta``),
+        then serve sweeps of the edited design through the handle's
+        ``submit``/``sweep`` passthroughs.  Patched graphs land in the
+        warm cache under the edited design's own fingerprint, so queued
+        rows against the pre-edit design are unaffected.
+        """
+        if self._stop.is_set():
+            raise RuntimeError("sweep service is closed")
+        from ..delta.session import EditSession
+        return EditSession(self, design, key=key)
 
     def _rejected_handle(self, D: np.ndarray, reason: str, tenant: str,
                          fallback: bool) -> SweepHandle:

@@ -325,6 +325,63 @@ def test_sweep_service_builds_the_kernel_library_at_construction(
         assert (want.cycles == got.cycles).all()
 
 
+# ------------------------------------------- edit sessions and the corpus
+def test_delta_edit_session_on_the_card_serves_a_patched_design(dev):
+    """An edit session of ``SweepService()`` (``backend="cuda"``): the
+    ``delay`` edit is served ``patched``, bit-identical to a cold
+    ``simulate``, and its sweep rows through kernel 1 equal those of a
+    cold-built base of the edited design, and the host oracle's."""
+    from repro_torch.corpus import edit_pairs, result_record
+    from repro_torch.sweep import SweepService
+
+    p = {q.kind: q for q in edit_pairs(3, scale=28)}["delay"]
+    cold = simulate(p.edited())
+    D = np.random.default_rng(0).integers(1, 7, size=(64, len(cold.depths)))
+    with SweepService(autostart=False) as svc:
+        sess = svc.edit_session(p.base())
+        out = sess.update(p.edited())
+        assert out.mode == "patched" and out.reuse_fraction >= 0.9
+        assert result_record(sess.entry.result) == result_record(cold)
+        _cuda.SPARSE.reset_counts()
+        served = sess.sweep(D)
+        assert _cuda.SPARSE.launches > 0
+    direct = resimulate_batch(cold, D, backend="cuda", device=dev)
+    host = resimulate_batch(cold, D, backend="numpy")
+    for want in (direct, host):
+        assert (served.status == want.status).all()
+        assert (served.cycles == want.cycles).all()
+        assert (served.violated == want.violated).all()
+        assert served.reasons == want.reasons
+
+
+def test_corpus_conformance_on_the_card(dev):
+    """Every engine path of a 32-module corpus design, with the ``"cuda"``
+    and ``"sweep"`` paths on the card."""
+    from repro_torch.corpus import check_conformance, generate
+
+    c = generate(3, scale=32)
+    _cuda.SPARSE.reset_counts()
+    rep = check_conformance(c.builder, name=c.name, device="cuda")
+    assert rep.ok and not rep.deadlock
+    assert rep.paths["cuda"] == rep.paths["sweep"] == "ok"
+    assert _cuda.SPARSE.launches > 0
+
+
+def test_delta_edit_session_needs_the_kernel_library(dev, monkeypatch):
+    """No edit session without kernel 1: the service raises at
+    construction when the library does not build."""
+    from repro_torch.corpus import edit_pairs
+    from repro_torch.sweep import SweepService
+
+    def no_nvcc():
+        raise RuntimeError("nvcc failed for maxplus_sparse.cu")
+
+    base = edit_pairs(3, scale=28)[0].base()
+    monkeypatch.setattr(_cuda.SPARSE, "lib", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        SweepService().edit_session(base)
+
+
 # ---------------------------------------------------------- flash attention
 def _flash_inputs(dev, dtype, B, S, H, Hkv, hd, seed=0):
     rng = np.random.default_rng(seed)

@@ -24,23 +24,24 @@ import pytest
 import torch
 
 import repro.core as ref_core
+import repro.delta as ref_delta
 import repro.designs.paper as ref_paper
 import repro.designs.typea as ref_typea
 import repro.sweep as ref_sweep
 import repro_torch.core as port_core
 import repro_torch.core.dse as port_dse
+import repro_torch.delta as port_delta
 import repro_torch.designs.paper as port_paper
 import repro_torch.designs.typea as port_typea
 import repro_torch.sweep as port_sweep
 from repro_torch.kernels import _cuda
-from repro_torch.sweep import cache as port_cache
 from repro_torch.sweep.search import _feasible_mask
 from test_torch_hybrid import _counters
 
 REF = SimpleNamespace(core=ref_core, sweep=ref_sweep, typea=ref_typea,
-                      paper=ref_paper)
+                      paper=ref_paper, delta=ref_delta)
 PORT = SimpleNamespace(core=port_core, sweep=port_sweep, typea=port_typea,
-                       paper=port_paper)
+                       paper=port_paper, delta=port_delta)
 REF_LANE = {"backend": "numpy"}
 PORT_LANES = [
     pytest.param({"backend": "cuda", "device": "cpu"}, id="cuda-cpu"),
@@ -493,14 +494,52 @@ def test_service_raises_when_the_kernel_library_does_not_build(monkeypatch):
     assert loaded == ["dense"]
 
 
+def _delta_hooks(pkg, lane):
+    """The three delta hooks (``edit_session``, ``get_or_patch``,
+    ``DeltaLookup``) on ``producer_consumer``: a re-depth is patched, a
+    body edit (more items) rejects to cold, the first design again hits
+    its exact key; then the cache's tiers directly."""
+    build = lambda n=32, depth=4: pkg.typea.producer_consumer(n=n,
+                                                              depth=depth)
+    D = np.asarray([[1], [2], [6]], dtype=np.int64)
+    seen = []
+    with _service(pkg, lane, block=2) as svc:
+        sess = svc.edit_session(build())
+        seen.append(_seen(sess.sweep(D)))
+        for prog in (build(depth=5), build(n=40), build()):
+            out = sess.update(prog)
+            seen.append((out.mode, out.reason, out.reused_modules,
+                         out.total_modules, out.delta.summary(),
+                         _seen(sess.sweep(D))))
+        stats = sess.stats()
+        stats.pop("key")
+        seen.append((stats, _stats(svc)))
+    cache = pkg.sweep.GraphCache(capacity=2)
+    fps = pkg.delta.fingerprint_design(build())
+    look0 = cache.get_or_patch(build(), fps, None)
+    fps1 = pkg.delta.fingerprint_design(build(depth=5))
+    look1 = cache.get_or_patch(build(depth=5), fps1, look0.state)
+    look2 = cache.get_or_patch(build(depth=5), fps1, None)
+    assert look2.entry is look1.entry
+    for look in (look0, look1, look2):
+        assert isinstance(look, pkg.sweep.cache.DeltaLookup)
+        seen.append((look.mode, look.reason, look.state is None,
+                     look.reused_modules, look.total_modules,
+                     look.entry.result.cycles))
+    seen.append({k: cache.stats()[k] for k in ("hits", "misses", "size",
+                                               "delta_hits",
+                                               "delta_rejects")})
+    return seen
+
+
 def test_delta_hooks_are_not_ported_yet():
-    with _service(PORT, {"backend": "numpy"}) as svc:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            svc.edit_session(port_typea.producer_consumer(n=8))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            svc.cache.get_or_patch(None, None, None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_cache.DeltaLookup()
+    """``edit_session`` (on a ``backend="numpy"`` service),
+    ``get_or_patch`` and ``DeltaLookup`` behave as the reference's: same
+    modes, reasons, rows and counters."""
+    got = _delta_hooks(PORT, {"backend": "numpy"})
+    assert got == _ref(_delta_hooks)
+    assert [s[0] for s in got[1:4]] == ["patched", "cold", "exact"]
+    assert [s[0] for s in got[5:8]] == ["cold", "patched", "exact"]
 
 
 def test_public_names_and_cache_stats_keys_match_the_reference():
