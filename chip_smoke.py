@@ -195,7 +195,45 @@ Phases, each printing its own line:
            ``backend="numpy"`` (64 rows); kernel 1 from the patched and
            the cold-built graph: ms, rounds, bound, peak memory.
      Kernel 1's launch count is zeroed just before and read just after
-     each of (a)-(c); the full GC passes inside each window are counted.
+     each of (a)-(c); the full GC passes inside each window are counted;
+  19. perfsim and the core remainder, host code on the card's machine:
+     ``simulate_pipeline`` for ``gpipe`` and ``1f1b`` (4 stages, 16
+     microbatches) against the RTL oracle (cycles and outputs equal),
+     ``buffer_depth_dse`` over depths 1-8 (every row equal to a cold
+     simulate), and ``longest_path_python`` against ``longest_path_numpy``
+     on ``matmul_stream()``'s generator graph; wall times;
+  20. minicpm-2b at its published widths (40 layers, d_model 2304, 36/36
+     heads, hd 64, vocab 122 753) with seeded random weights (drawn on the
+     card) and its int8 KV cache, through the entry points a user calls:
+     the prefill step (B 2, S 2048, bf16), ``ServeEngine.generate`` (4
+     prompts of 64 tokens, 16 new) and ``ContinuousBatchingEngine.run``
+     (6 requests of 16 tokens over 4 slots, 8 new each).  Launch counts
+     are zeroed just before and read just after these three calls: the
+     flash kernel must have run once per layer (40), at group size 1, all
+     on the tensor-core route.  Then (a) the prefill's logits against
+     ``plain_kernels()`` in bf16 and in float32; (b) the engines' outputs,
+     and int8 against bf16 decode on the same weights in float32 for 8
+     steps, beside the reference's bound of 0.15 (printed, a finding if
+     missed), and the two caches' bytes; (c) the prefill's time, decode
+     tokens per second, the flash kernel at this shape beside its plain
+     version, ``scaled_dot_product_attention`` and its bound, the busy
+     share and peak memory;
+  21. training: (a) smollm-135m at its published widths through
+     ``repro_torch.launch.train``'s ``main`` (4 steps of B 8 x S 2048, a
+     checkpoint every 2, into a temporary directory), then, with step 4's
+     checkpoint removed, a second run that resumes from step 2: finite
+     losses and grad norms, step 0's loss within 0.5 of ln(vocab), the
+     resumed run's data state, losses and weights equal to the
+     uninterrupted run's; no kernel of ours launched in the train steps
+     (counts zeroed before each run); step time, tokens per second, busy
+     share, peak memory; then a prefill on the trained weights, which
+     must launch the flash kernel 30 times and agree with
+     ``plain_kernels()``; (b) xlstm-1.3b at its published widths, 2 steps
+     of ``make_train_step`` at B 1 x S 256: finite, no mLSTM launch, step
+     time and peak memory; (c) one ``make_train_step`` at smollm-135m's
+     smoke size in float32 on the card and on the CPU from the same
+     weights and batch: loss, grad norm and weights within 1e-4.
+     Before phase 19 the serving phases' weights and caches are released.
      The run's total time is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
@@ -506,6 +544,501 @@ def main():
                       f"{what}: fallback result differs")
 
     rng = np.random.default_rng(0)
+
+    def attn_inputs(B, S, H, Hkv, hd, dtype):
+        """Seeded q [B*H, S, hd], k and v [B*Hkv, S, hd] on the card."""
+        return [torch.from_numpy(rng.standard_normal((B * h, S, hd),
+                                                     dtype=np.float32))
+                .to(dev, dtype) for h in (H, Hkv, Hkv)]
+
+    def kept_pairs(S, causal, window):
+        """(q, k) pairs the masks keep, per head."""
+        qi = np.arange(S, dtype=np.int64)
+        hi = qi + 1 if causal else np.full(S, S, np.int64)
+        lo = np.maximum(0, qi - window + 1) if window > 0 else 0
+        return int((hi - lo).sum())
+
+    def attn_bound(B, S, H, Hkv, hd, dtype, causal=True, window=0):
+        """(bound ms, bound_by): 4 hd FLOPs per kept pair (q.k and p.v) at
+        the bf16 tensor-core rate, or q, k, v, o moved once at HBM rate."""
+        flops = 4 * B * H * hd * kept_pairs(S, causal, window)
+        nbytes = torch.tensor([], dtype=dtype).element_size() \
+            * B * S * hd * (2 * H + 2 * Hkv)
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    # ------------------------------------------------ phases 19 - 21
+    def late_phases():
+        """Phases 19-21: perfsim and the core remainder (host), minicpm-2b
+        served on the int8 KV cache, and training.  Returns what the
+        kernel record takes from them."""
+        import dataclasses
+        import shutil
+        import tempfile
+
+        from repro_torch.core import longest_path_python
+        from repro_torch.launch import train as train_launcher
+        from repro_torch.optim.adamw import init_adamw
+        from repro_torch.perfsim import (PipelineSpec, buffer_depth_dse,
+                                         simulate_pipeline)
+        from repro_torch.train.step import make_train_step
+
+        late = {}
+        log(f"device memory held before phases 19-21: "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+        # ----------------------------------------------------------- 19
+        with phase("19 perfsim and the core remainder (host)"):
+            for sched in ("gpipe", "1f1b"):
+                spec = PipelineSpec(stages=4, microbatches=16, fwd_ticks=5,
+                                    bwd_ticks=10, schedule=sched,
+                                    dp_allreduce_ticks=20)
+                t0 = time.perf_counter()
+                om = simulate_pipeline(spec)
+                s_om = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                rtl = simulate_pipeline(spec, engine="rtl")
+                s_rtl = time.perf_counter() - t0
+                check(not om.deadlock and om.step_ticks == rtl.step_ticks
+                      and om.result.outputs == rtl.result.outputs,
+                      f"{sched}: simulate {om.step_ticks} ticks, RTL "
+                      f"{rtl.step_ticks}, deadlock {om.deadlock}")
+                log(f"  {sched}, 4 stages x 16 microbatches: "
+                    f"{om.step_ticks} ticks (RTL oracle {rtl.step_ticks}, "
+                    f"outputs equal), bubble {om.bubble_fraction:.4f}, "
+                    f"engine {om.result.engine}; simulate {s_om:.4f} s, "
+                    f"RTL oracle {s_rtl:.4f} s (host) [{card}]")
+            spec = PipelineSpec(stages=4, microbatches=16, fwd_ticks=5,
+                                bwd_ticks=10, schedule="gpipe",
+                                buffer_depth=1)
+            depths = list(range(1, 9))
+            t0 = time.perf_counter()
+            rows = buffer_depth_dse(spec, depths)
+            s_dse = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cold = [simulate_pipeline(dataclasses.replace(
+                spec, buffer_depth=d)) for d in depths]
+            s_cold = time.perf_counter() - t0
+            for (d, r, _), c in zip(rows, cold):
+                check((r.step_ticks, r.bubble_fraction, r.deadlock,
+                       r.result.outputs) == (c.step_ticks, c.bubble_fraction,
+                                             c.deadlock, c.result.outputs),
+                      f"buffer_depth_dse depth {d}: {r.step_ticks} ticks, "
+                      f"cold simulate {c.step_ticks}")
+            n_inc = sum(s >= 0 for _, _, s in rows[1:])
+            log(f"  buffer_depth_dse gpipe, depths 1-8: ticks "
+                f"{[r.step_ticks for _, r, _ in rows]}, every row equal to "
+                f"a cold simulate; {n_inc} of {len(rows) - 1} re-solved "
+                f"incrementally; the sweep {s_dse:.4f} s, 8 cold simulates "
+                f"{s_cold:.4f} s (host) [{card}]")
+            res = simulate(matmul_stream(), trace="never")
+            csr = res.graph.graph.to_csr()
+            t0 = time.perf_counter()
+            t_py = longest_path_python(*csr)
+            s_py = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            t_np = longest_path_numpy(*csr)
+            s_np = time.perf_counter() - t0
+            check(np.array_equal(t_py, t_np) and
+                  np.array_equal(t_py, res.graph.graph.times()),
+                  "longest_path_python differs from longest_path_numpy")
+            log(f"  longest_path_python on matmul_stream()'s generator "
+                f"graph (n {len(t_py)}, E {len(csr[1])}): equal to "
+                f"longest_path_numpy and the recorded times; "
+                f"{s_py:.3f} s against {s_np:.3f} s (host) [{card}]")
+
+        # ----------------------------------------------------------- 20
+        mcfg = get_arch("minicpm-2b")
+        mparams, m_out, m_err = None, {}, {}
+        r20 = np.random.default_rng(20)
+        with phase("minicpm main path: minicpm-2b prefill + serving on the "
+                   "int8 KV cache (counted)"):
+            t0 = time.perf_counter()
+            mparams = api.init_params(torch.Generator(device=dev)
+                                      .manual_seed(0), mcfg, device=dev)
+            sync()
+            log(f"  {mcfg.name}: "
+                f"{sum(p.numel() for p in mparams.parameters())} "
+                f"parameters, {mcfg.num_layers} layers, d_model "
+                f"{mcfg.d_model}, heads {mcfg.num_heads}/"
+                f"{mcfg.num_kv_heads}, hd {mcfg.resolved_head_dim}, vocab "
+                f"{mcfg.vocab_size}, kv_quant {mcfg.kv_quant}, dtype "
+                f"{mcfg.dtype} (init on the card "
+                f"{time.perf_counter() - t0:.2f} s)")
+            toks20 = torch.from_numpy(r20.integers(0, mcfg.vocab_size,
+                                                   (2, 2048))).to(dev)
+            prompts20 = r20.integers(0, mcfg.vocab_size, (4, 64))
+            requests20 = [r20.integers(0, mcfg.vocab_size, 16)
+                          for _ in range(6)]
+            mprefill = make_prefill_step(mcfg)
+            sync()
+            for lib in _cuda.LIBS:
+                lib.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m_out["prefill"] = mprefill(mparams, {"tokens": toks20})
+            sync()
+            m_out["prefill_s"] = time.perf_counter() - t0
+            m_out["prefill_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m_out["generate"] = ServeEngine(mcfg, mparams, batch=4,
+                                            max_len=128).generate(prompts20,
+                                                                  16)
+            sync()
+            m_out["generate_s"] = time.perf_counter() - t0
+            cb20 = ContinuousBatchingEngine(mcfg, mparams, batch=4,
+                                            max_len=128)
+            check(cb20.cache["k"].dtype == torch.int8 and
+                  cb20.cache["k_scale"].dtype == torch.bfloat16,
+                  "the serving cache is not int8 with bf16 scales")
+            t0 = time.perf_counter()
+            m_out["cb"] = cb20.run(requests20, 8)
+            sync()
+            m_out["cb_s"] = time.perf_counter() - t0
+            m_out["serve_peak"] = torch.cuda.max_memory_allocated()
+            del cb20
+            m_launches = {lib.name: lib.launches for lib in _cuda.LIBS}
+            m_routes = dict(_cuda.FLASH.route_launches)
+            log(f"  prefill B=2 S=2048: {m_out['prefill_s']:.3f} s (first "
+                f"call); generate 4x(64+16): {m_out['generate_s']:.3f} s; "
+                f"continuous batching 6x(16+8) over 4 slots: "
+                f"{m_out['cb_s']:.3f} s [{card}]")
+            log(f"launches on the minicpm path: {m_launches}; flash routes "
+                f"{m_routes}")
+            check(m_launches["flash_attention"] == mcfg.num_layers,
+                  f"flash kernel launched {m_launches['flash_attention']} "
+                  f"times in one prefill, not once per layer "
+                  f"({mcfg.num_layers})")
+            check(m_routes["tensor_core_bf16"] == mcfg.num_layers,
+                  f"the bf16 prefill took the tensor-core route "
+                  f"{m_routes['tensor_core_bf16']} times, not "
+                  f"{mcfg.num_layers}")
+            late["minicpm_launches"] = m_launches["flash_attention"]
+            late["minicpm_routes"] = m_routes
+
+        if "cb" in m_out:
+            with phase("20 (a) minicpm-2b prefill vs plain version (bf16 "
+                       "and float32)"):
+                got = m_out["prefill"].float()
+                vp = mparams.embed.shape[0]
+                check(tuple(got.shape) == (2, vp) and
+                      bool(torch.isfinite(got).all()),
+                      f"prefill logits not finite or of shape (2, {vp})")
+                with plain_kernels():
+                    want = mprefill(mparams, {"tokens": toks20}).float()
+                # as phase 9: bf16 activations through 40 layers, each
+                # attention output within one bf16 step: 0.1 absolute
+                m_err["bf16"] = (got - want).abs().max().item()
+                check(m_err["bf16"] <= 0.1, f"bf16 prefill logits differ "
+                      f"by {m_err['bf16']:.3g} > 0.1")
+                cfg32 = mcfg.replace(dtype="float32")
+                p32 = make_prefill_step(cfg32)
+                got32 = p32(mparams, {"tokens": toks20})
+                with plain_kernels():
+                    want32 = p32(mparams, {"tokens": toks20})
+                # float32 throughout: summation order only, 1e-3 absolute
+                m_err["f32"] = (got32 - want32).abs().max().item()
+                check(m_err["f32"] <= 1e-3, f"f32 prefill logits differ "
+                      f"by {m_err['f32']:.3g} > 1e-3")
+                log(f"  bf16: max abs diff {m_err['bf16']:.3g} (max "
+                    f"|logit| {want[:, :mcfg.vocab_size].abs().max().item():.3g}"
+                    f"; argmax agree "
+                    f"{bool(torch.equal(got.argmax(-1), want.argmax(-1)))})"
+                    f"; float32: {m_err['f32']:.3g}")
+                del got, want, got32, want32
+
+            with phase("20 (b) serving outputs on the int8 cache; int8 vs "
+                       "bf16 decode (float32)"):
+                gen = m_out["generate"]
+                check(gen.shape == (4, 16) and gen.min() >= 0
+                      and gen.max() < mcfg.vocab_size, f"generate gave "
+                      f"{gen.shape}, ids {gen.min()}..{gen.max()}")
+                done = m_out["cb"]
+                check(len(done) == 6 and all(len(t) == 8 for _, t in done)
+                      and {s for s, _ in done} == set(range(4)),
+                      f"continuous batching finished {len(done)} of 6, "
+                      f"slots {[s for s, _ in done]}")
+                cq = mcfg.replace(dtype="float32")
+                c16 = cq.replace(kv_quant=False)
+                caches = {c: api.init_cache(c, 2, 16, device=dev)
+                          for c in (cq, c16)}
+                check(caches[cq]["k"].dtype == torch.int8 and
+                      caches[c16]["k"].dtype == torch.bfloat16,
+                      "cache dtypes")
+                worst = 0.0
+                for t in range(8):
+                    tok = torch.from_numpy(prompts20[:2, t:t + 1]).to(dev)
+                    lq, _ = api.decode_step(mparams, tok, caches[cq], cq)
+                    lb, _ = api.decode_step(mparams, tok, caches[c16], c16)
+                    worst = max(worst, (lq - lb).abs().max().item())
+                check(np.isfinite(worst), "int8 decode logits not finite")
+                late["int8_vs_bf16"] = worst
+                nbytes = {}
+                for name, c in (("int8", mcfg), ("bf16", c16)):
+                    cache = api.init_cache(c, 4, 4096, device="meta")
+                    nbytes[name] = sum(a.numel() * a.element_size()
+                                       for a in cache.values())
+                late["cache_bytes"] = nbytes
+                log(f"  generate {gen.shape}; continuous batching "
+                    f"{len(done)} requests, slots {[s for s, _ in done]}; "
+                    f"int8 against bf16 KV decode, float32 compute, 8 "
+                    f"steps: max |logit diff| {worst:.4g} beside the "
+                    f"reference's bound 0.15 "
+                    f"({'inside' if worst < 0.15 else 'MISSED: a finding'})"
+                    f"; cache at B 4 x T 4096: int8 "
+                    f"{nbytes['int8'] / 2**30:.3f} GiB, bf16 "
+                    f"{nbytes['bf16'] / 2**30:.3f} GiB "
+                    f"({nbytes['int8'] / nbytes['bf16']:.3f}x)")
+
+            with phase("20 (c) timings (minicpm-2b)"):
+                pf_ms = cuda_time(lambda: mprefill(
+                    mparams, {"tokens": toks20}), 3, warm_up=False)
+                gen_ms = cuda_time(lambda: ServeEngine(
+                    mcfg, mparams, batch=4, max_len=128).generate(
+                        prompts20, 16), 2, warm_up=False)
+                steps = 64 + 16 - 1
+                B, S, H, Hkv, hd = 2, 2048, 36, 36, 64
+                q, k, v = attn_inputs(B, S, H, Hkv, hd, torch.bfloat16)
+                call = (lambda: fa_kernel.flash_attention_bhsd(
+                    q, k, v, group_size=1))
+                got = call()
+                want = fa_ref.attention_ref(q, k, v, group_size=1)
+                err = (got.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=2.0 ** -7, atol=1e-3)
+                k_ms = cuda_time(call, 5)
+                p_ms = cuda_time(lambda: fa_ref.attention_ref(
+                    q, k, v, group_size=1), 2)
+                # one head per K/V head: no enable_gqa
+                lib_ms = cuda_time(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q.view(B, H, S, hd), k.view(B, Hkv, S, hd),
+                        v.view(B, Hkv, S, hd), is_causal=True), 5)
+                bound_ms, bound_by = attn_bound(B, S, H, Hkv, hd,
+                                                torch.bfloat16)
+                late["flash_minicpm"] = {
+                    "shape": f"minicpm-2b: B={B} S={S} H={H}/{Hkv} hd={hd} "
+                             f"bf16 causal (group size 1)",
+                    "route": "tensor_core_bf16", "ms": k_ms,
+                    "plain_ms": p_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": err,
+                    "tflops": 4 * B * H * hd * kept_pairs(S, True, 0)
+                    / (k_ms * 1e-3) / 1e12}
+                del q, k, v, got, want
+                log(f"  flash {late['flash_minicpm']} [{card}]")
+                log(f"  prefill step minicpm-2b B=2 S=2048 bf16: median "
+                    f"{pf_ms:.3f} ms of 3 (first "
+                    f"{1e3 * m_out['prefill_s']:.3f} ms), peak device "
+                    f"memory {m_out['prefill_peak'] / 2**30:.3f} GiB "
+                    f"[{card}]")
+                log(f"  ServeEngine.generate 4 x {steps} decode steps on the "
+                    f"int8 cache: median {gen_ms:.3f} ms of 2, "
+                    f"{4 * steps / (gen_ms / 1e3):.2f} decode tokens/s "
+                    f"({4 * 16 / (gen_ms / 1e3):.2f} new tokens/s); "
+                    f"continuous batching {m_out['cb_s']:.3f} s, "
+                    f"{6 * 8 / m_out['cb_s']:.2f} new tokens/s (first run); "
+                    f"peak device memory serving "
+                    f"{m_out['serve_peak'] / 2**30:.3f} GiB [{card}]")
+                log(f"  device busy, prefill step: "
+                    f"{device_busy(lambda: mprefill(mparams, {'tokens': toks20}))}"
+                    f" [{card}]")
+        mparams = m_out = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ----------------------------------------------------------- 21
+        scfg = get_arch("smollm-135m")
+        r21 = np.random.default_rng(21)
+        train_launches = {}
+        with phase("21 (a) training smollm-135m at full width through "
+                   "repro_torch.launch.train (counted)"):
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+            try:
+                argv = ["--arch", "smollm-135m", "--steps", "4", "--batch",
+                        "8", "--seq", "2048", "--ckpt-every", "2",
+                        "--ckpt-dir", tmp, "--log-every", "1", "--device",
+                        "cuda"]
+                for lib in _cuda.LIBS:
+                    lib.reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                run1 = train_launcher.main(argv)
+                sync()
+                s_run1 = time.perf_counter() - t0
+                peak1 = torch.cuda.max_memory_allocated()
+                train_launches["run"] = {lib.name: lib.launches
+                                         for lib in _cuda.LIBS}
+                hist = run1["history"]
+                check(all(np.isfinite(h["loss"]) and
+                          np.isfinite(h["grad_norm"]) for h in hist),
+                      f"a loss or grad norm is not finite: {hist}")
+                ln_v = float(np.log(scfg.vocab_size))
+                check(abs(hist[0]["loss"] - ln_v) < 0.5,
+                      f"step 0's loss {hist[0]['loss']:.4f} is not within "
+                      f"0.5 of ln(vocab) {ln_v:.4f}")
+                # a crash after step 2's checkpoint: drop step 4's, resume
+                ckdir = os.path.join(tmp, scfg.name)
+                shutil.rmtree(os.path.join(ckdir, "step_000000000004"))
+                check(os.listdir(ckdir) == ["step_000000000002"],
+                      f"checkpoints {os.listdir(ckdir)}")
+                for lib in _cuda.LIBS:
+                    lib.reset_counts()
+                run2 = train_launcher.main(argv)
+                sync()
+                train_launches["resume"] = {lib.name: lib.launches
+                                            for lib in _cuda.LIBS}
+                check(run2["start_step"] == 2 and
+                      [h["step"] for h in run2["history"]] == [3, 4],
+                      "the resumed run did not start from step 2")
+                check(run2["data_state"] == run1["data_state"],
+                      f"data state {run2['data_state']} after the resume, "
+                      f"{run1['data_state']} uninterrupted")
+                d_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                             for a, b in zip(run2["history"], hist[2:]))
+                d_par = max((a - b).abs().max().item() for a, b in zip(
+                    run2["params"].parameters(),
+                    run1["params"].parameters()))
+                # same restored weights and batches; the card's atomic
+                # sums (embedding backward) may order differently, at
+                # lr <= 1.2e-5 in these warm-up steps
+                check(d_loss <= 1e-5 and d_par <= 1e-5,
+                      f"resumed run differs: loss {d_loss:.3g} relative, "
+                      f"weights {d_par:.3g}")
+                check(all(n == 0 for run in train_launches.values()
+                          for n in run.values()),
+                      f"a kernel of ours launched in the train steps: "
+                      f"{train_launches}")
+                secs = [h["seconds"] for h in hist]
+                step_s = statistics.median(secs[1:])
+                late["train_smollm"] = {"step_s": step_s,
+                                        "tokens_per_s": 8 * 2048 / step_s,
+                                        "peak_gib": peak1 / 2**30}
+                log(f"  losses {[round(h['loss'], 4) for h in hist]} "
+                    f"(ln vocab {ln_v:.4f}), grad norms "
+                    f"{[round(h['grad_norm'], 4) for h in hist]}, lr "
+                    f"{[h['lr'] for h in hist]}; resumed from step 2: "
+                    f"losses {[round(h['loss'], 4) for h in run2['history']]}"
+                    f", data state equal, loss diff {d_loss:.3g} relative, "
+                    f"weights {d_par:.3g}")
+                log(f"  launches in the train steps: {train_launches}")
+                log(f"  step wall time {[round(s, 4) for s in secs]} s, "
+                    f"median of the last 3 {step_s:.4f} s, "
+                    f"{8 * 2048 / step_s:.0f} tokens/s (B 8 x S 2048, "
+                    f"bf16, remat); run of 4 steps {s_run1:.2f} s in all; "
+                    f"peak device memory {peak1 / 2**30:.3f} GiB [{card}]")
+                params = run2["params"]
+                step_fn = make_train_step(scfg, total_steps=4)
+                tb = r21.integers(0, scfg.vocab_size, (8, 2048))
+                batch = {"tokens": torch.from_numpy(tb).to(dev),
+                         "targets": torch.from_numpy(
+                             np.roll(tb, -1, 1)).to(dev)}
+                opt = run2["opt_state"]
+                log(f"  device busy, one train step: "
+                    f"{device_busy(lambda: step_fn(params, opt, batch))} "
+                    f"[{card}]")
+                # the trained weights served: the kernel lane again
+                toks = torch.from_numpy(r21.integers(
+                    0, scfg.vocab_size, (2, 2048))).to(dev)
+                pf = make_prefill_step(scfg)
+                for lib in _cuda.LIBS:
+                    lib.reset_counts()
+                got = pf(params, {"tokens": toks})
+                sync()
+                late["after_training_launches"] = _cuda.FLASH.launches
+                check(_cuda.FLASH.launches == scfg.num_layers and
+                      _cuda.FLASH.route_launches["tensor_core_bf16"]
+                      == scfg.num_layers, f"prefill after training: "
+                      f"{_cuda.FLASH.launches} flash launches, routes "
+                      f"{_cuda.FLASH.route_launches}")
+                with plain_kernels():
+                    want = pf(params, {"tokens": toks})
+                err = (got.float() - want.float()).abs().max().item()
+                check(err <= 0.1, f"prefill after training differs from "
+                      f"the plain version by {err:.3g} > 0.1")
+                log(f"  prefill B=2 S=2048 on the trained weights: "
+                    f"{_cuda.FLASH.launches} flash launches (tensor-core "
+                    f"route), max abs diff against plain_kernels() "
+                    f"{err:.3g}")
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+        run1 = run2 = params = opt = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        with phase("21 (b) training xlstm-1.3b at full width, "
+                   "make_train_step (counted)"):
+            xc = get_arch("xlstm-1.3b")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            xp = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 xc, device=dev)
+            xo = init_adamw(xp)
+            sync()
+            s_init = time.perf_counter() - t0
+            step_fn = make_train_step(xc)
+            for lib in _cuda.LIBS:
+                lib.reset_counts()
+            secs, hist = [], []
+            for _ in range(2):
+                tb = r21.integers(0, xc.vocab_size, (1, 256))
+                batch = {"tokens": torch.from_numpy(tb).to(dev),
+                         "targets": torch.from_numpy(
+                             np.roll(tb, -1, 1)).to(dev)}
+                t0 = time.perf_counter()
+                xp, xo, m = step_fn(xp, xo, batch)
+                sync()
+                secs.append(time.perf_counter() - t0)
+                hist.append({k: float(v) for k, v in m.items()})
+            peak = torch.cuda.max_memory_allocated()
+            x_train = {lib.name: lib.launches for lib in _cuda.LIBS}
+            train_launches["xlstm"] = x_train
+            check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                      for h in hist), f"not finite: {hist}")
+            check(all(n == 0 for n in x_train.values()),
+                  f"a kernel of ours launched in the train steps: {x_train}")
+            late["train_xlstm"] = {"step_s": secs, "peak_gib": peak / 2**30}
+            log(f"  {sum(p.numel() for p in xp.parameters())} parameters "
+                f"(init + AdamW state {s_init:.2f} s); B 1 x S 256: losses "
+                f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+                f"{[round(h['grad_norm'], 4) for h in hist]}; launches "
+                f"{x_train}; step wall time {[round(s, 3) for s in secs]} s "
+                f"({256 / secs[-1]:.1f} tokens/s); peak device memory "
+                f"{peak / 2**30:.3f} GiB [{card}]")
+        xp = xo = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        with phase("21 (c) a train step on the card against the CPU "
+                   "(smollm-135m smoke, float32)"):
+            c = scfg.smoke()
+            tb = r21.integers(0, c.vocab_size, (4, 128))
+            out = []
+            for d in (dev, torch.device("cpu")):
+                p = api.init_params(0, c, device=d)
+                o = init_adamw(p)
+                o = o._replace(step=o.step + 150)
+                batch = {"tokens": torch.from_numpy(tb).to(d),
+                         "targets": torch.from_numpy(
+                             np.roll(tb, -1, 1)).to(d)}
+                p, o, m = make_train_step(c, cast_bf16=False)(p, o, batch)
+                out.append(({k: float(v) for k, v in m.items()},
+                            {n: t.detach().cpu()
+                             for n, t in p.named_parameters()}))
+            (mg, pg), (mc, pc) = out
+            d_m = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+                   for k in ("loss", "grad_norm")}
+            d_p = max((pg[n] - pc[n]).abs().max().item() for n in pc)
+            check(max(d_m.values()) <= 1e-4 and d_p <= 1e-4,
+                  f"card and CPU differ: {d_m}, weights {d_p:.3g}")
+            log(f"  loss {mg['loss']:.6f} (CPU {mc['loss']:.6f}), grad norm "
+                f"{mg['grad_norm']:.6f} (CPU {mc['grad_norm']:.6f}); "
+                f"relative differences {d_m}, weights max abs {d_p:.3g} "
+                f"(limit 1e-4)")
+        late["train_launches"] = train_launches
+        return late
 
     # ---------------------------------------------------------------- 2
     with phase("2 kernels vs plain versions (synthetic inputs)"):
@@ -836,29 +1369,6 @@ def main():
             "by_shape": by_shape})
 
     # ---------------------------------------------------------------- 8
-    def attn_inputs(B, S, H, Hkv, hd, dtype):
-        """Seeded q [B*H, S, hd], k and v [B*Hkv, S, hd] on the card."""
-        return [torch.from_numpy(rng.standard_normal((B * h, S, hd),
-                                                     dtype=np.float32))
-                .to(dev, dtype) for h in (H, Hkv, Hkv)]
-
-    def kept_pairs(S, causal, window):
-        """(q, k) pairs the masks keep, per head."""
-        qi = np.arange(S, dtype=np.int64)
-        hi = qi + 1 if causal else np.full(S, S, np.int64)
-        lo = np.maximum(0, qi - window + 1) if window > 0 else 0
-        return int((hi - lo).sum())
-
-    def attn_bound(B, S, H, Hkv, hd, dtype, causal=True, window=0):
-        """(bound ms, bound_by): 4 hd FLOPs per kept pair (q.k and p.v) at
-        the bf16 tensor-core rate, or q, k, v, o moved once at HBM rate."""
-        flops = 4 * B * H * hd * kept_pairs(S, causal, window)
-        nbytes = torch.tensor([], dtype=dtype).element_size() \
-            * B * S * hd * (2 * H + 2 * Hkv)
-        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes")
-
     # (name, B, S, H, Hkv, hd, dtype, window, softcap, rtol, atol)
     # bf16 (the tensor-core route): the kernel rounds P to bf16 before P.V,
     # which perturbs each weight by at most 2^-9 relative and moves a row
@@ -2320,6 +2830,13 @@ def main():
             f"{gc_note(t_w)} [{card}]")
     gc.callbacks.remove(on_gc)
 
+    # the serving phases' weights and caches are not needed past here
+    params = xparams = cb = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    late = late_phases()
+    train_launches = late.get("train_launches", {})
+
     for k in kernels:
         if k["name"] == "maxplus_sparse_fixpoint":
             k["launches_service"] = service_launches
@@ -2331,6 +2848,20 @@ def main():
         if k["name"] == "maxplus_dense_sweep":
             k["launches_trace_finalize"] = trace_dense.get("launches")
             k["launches_hybrid_finalize"] = hybrid_dense.get("launches")
+        if k["name"] == "flash_attention":
+            k["launches_minicpm_prefill"] = late.get("minicpm_launches")
+            k["routes_minicpm_prefill"] = late.get("minicpm_routes")
+            k["launches_prefill_after_training"] = late.get(
+                "after_training_launches")
+            k["launches_train_steps"] = {
+                run: n.get("flash_attention")
+                for run, n in train_launches.items()}
+            if "flash_minicpm" in late:
+                k["by_shape"].append(late["flash_minicpm"])
+        if k["name"] == "mlstm_chunk":
+            k["launches_train_steps"] = {
+                run: n.get("mlstm_chunk")
+                for run, n in train_launches.items()}
 
     if FAILURES:
         log(f"FAILED phases: {FAILURES}")

@@ -25,7 +25,7 @@ from .events import (Constraint, DeadlockError, NodeKind, Query, RequestType,
 from .graph import (ChainFlatArrays, SimGraph, export_chain_flat,
                     level_schedule, longest_path_chains,
                     longest_path_chains_batched, longest_path_numpy,
-                    to_dense_blocks)
+                    longest_path_python, to_dense_blocks)
 from .incremental import (CompiledGraph, IncrementalOutcome,
                           check_constraints, compile_graph,
                           compiled_graph_from_arrays, resimulate,
@@ -46,7 +46,8 @@ __all__ = [
     "compiled_graph_from_arrays", "check_constraints", "verify_times",
     "IncrementalOutcome", "Program", "Fifo", "Module", "Op", "Read", "Write",
     "ReadNB", "WriteNB", "Empty", "Full", "Delay", "Emit", "SimResult",
-    "SimGraph", "longest_path_numpy", "longest_path_chains",
+    "SimGraph", "longest_path_numpy", "longest_path_python",
+    "longest_path_chains",
     "longest_path_chains_batched", "level_schedule", "to_dense_blocks",
     "ChainFlatArrays", "export_chain_flat", "Constraint", "DeadlockError",
     "Query", "RequestType", "NodeKind", "SimStats", "UnsupportedDesignError",

@@ -84,6 +84,20 @@ class SimGraph:
 # ------------------------------------------------------------------------------
 # Longest-path backends
 # ------------------------------------------------------------------------------
+def longest_path_python(indptr: np.ndarray, src: np.ndarray, wgt: np.ndarray,
+                        base: np.ndarray) -> np.ndarray:
+    """O(V+E) forward pass in creation (= topological) order."""
+    n = len(base)
+    t = base.astype(np.int64).copy()
+    for i in range(n):
+        lo, hi = indptr[i], indptr[i + 1]
+        for k in range(lo, hi):
+            cand = t[src[k]] + wgt[k]
+            if cand > t[i]:
+                t[i] = cand
+    return t
+
+
 def level_schedule(indptr: np.ndarray, src: np.ndarray) -> Tuple[np.ndarray, List[np.ndarray]]:
     """Group nodes into levels where level(i) = 1 + max(level(preds)).
 

@@ -198,6 +198,13 @@ class Program:
             f.depth = int(d)
         return self
 
+    # -- static structure for taxonomy ---------------------------------------
+    def static_trace(self, max_ops_per_module: int = 100_000) -> Dict[str, Any]:
+        """Dry-inspect module generators is impossible without running them;
+        static features here are derived from a bounded functional probe run
+        by the classifier (see core/taxonomy.py)."""
+        raise NotImplementedError("use core.taxonomy.classify(program)")
+
 
 @dataclass
 class SimResult:

@@ -184,3 +184,19 @@ def stream_of(tensor) -> int:
     import torch
 
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def refuse_grad(kernel: str, tensors) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad.  The
+    hand-written kernels have no backward (nor have the reference's Pallas
+    kernels): a kernel's output would carry no ``grad_fn``, and the
+    gradients of everything before it would come out ``None`` without a
+    word.  The plain versions that stand in for them on the CPU refuse the
+    same tensors, so both devices take one path."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward, and an input requires "
+            f"grad: train through the models' lane='train' (plain torch "
+            f"under autograd), or call it under torch.no_grad()")

@@ -17,13 +17,14 @@ bfloat16 runs both products on the tensor cores (``"tensor_core_bf16"``:
 float32 runs them in exact f32 FMA (``"fma_f32"``).
 
 Dispatch rule: a CUDA tensor launches the kernel (or the call raises); a
-CPU tensor runs the plain version (:func:`~.ref.attention_ref`).
+CPU tensor runs the plain version (:func:`~.ref.attention_ref`).  Either
+raises on inputs that require grad: the kernel has no backward.
 """
 from __future__ import annotations
 
 import torch
 
-from .._cuda import FLASH, stream_of
+from .._cuda import FLASH, refuse_grad, stream_of
 from .ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -62,6 +63,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     give 0.
     """
     _check(q, k, v, group_size)
+    refuse_grad("flash-attention", (q, k, v))
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, group_size=group_size)

@@ -18,7 +18,8 @@ Pv, P up to 1024 and ``chunk`` up to what one block's shared memory holds
 error, which the call raises.
 
 Dispatch rule: a CUDA tensor launches the kernel (or the call raises); a
-CPU tensor runs the plain version (:func:`~.ref.mlstm_ref`).
+CPU tensor runs the plain version (:func:`~.ref.mlstm_ref`).  Either
+raises on inputs that require grad: the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import ctypes
 
 import torch
 
-from .._cuda import MLSTM, stream_of
+from .._cuda import MLSTM, refuse_grad, stream_of
 from .ref import mlstm_ref
 
 
@@ -55,6 +56,7 @@ def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [BH, S, Pv]: the chunked recurrence with its state carried across the
     S / chunk chunks of each row (float32 on the card)."""
     _check(q, k, v, ig, la, chunk)
+    refuse_grad("chunked-mLSTM", (q, k, v, ig, la))
     if q.device.type == "cpu":
         return mlstm_ref(q, k, v, ig, la)
     if q.device.type != "cuda":

@@ -1,0 +1,122 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch
+smollm-135m`` (``--smoke`` for the reduced config, ``--device cpu`` for
+the plain versions on a machine without a card).
+
+The port of ``repro.launch.train``: the reference's flags and its loop on
+one device, with no mesh.
+
+  * the data stream is the reference's (``data.pipeline``): batch i is a
+    pure function of (seed, i, host), so a restart resumes it exactly;
+  * auto-restart: resumes from the latest complete checkpoint (atomic,
+    versioned: ``distrib.checkpoint``) including the data-iterator state;
+  * straggler monitor hook (per-step wall time EWMA,
+    ``distrib.elastic.StragglerMonitor``);
+  * optional int8 error-feedback gradient compression.
+
+Weights are drawn from ``--seed`` on the training device.  ``main``
+returns what a caller checks: the step it started from, each step's
+metrics (floats) and wall time, the parameters, the AdamW state and the
+data-iterator state.  The default device is ``cuda``, which raises
+without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+from ..configs import get_arch
+from ..data.pipeline import DataConfig, SyntheticTokenStream
+from ..distrib.checkpoint import CheckpointManager
+from ..distrib.elastic import StragglerMonitor
+from ..kernels._cuda import resolve_device
+from ..models import api
+from ..optim.adamw import init_adamw
+from ..train.step import make_train_step
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config for CPU hosts")
+    ap.add_argument("--ckpt-dir", default="checkpoints")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--grad-compression", action="store_true",
+                    help="int8 error-feedback gradient compression (DP "
+                         "bandwidth reduction demo)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    device = resolve_device(args.device)
+    print(f"device: {device} (one device, no mesh)")
+
+    data = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        global_batch=args.batch, seed=args.seed,
+        frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model))
+
+    ckpt = CheckpointManager(os.path.join(args.ckpt_dir, cfg.name))
+    params = api.init_params(torch.Generator(device=device)
+                             .manual_seed(args.seed), cfg, device=device)
+    opt_state = init_adamw(params)
+    start_step = 0
+    latest = ckpt.latest()
+    if latest is not None:
+        params, opt_state, extra = ckpt.restore(latest, params, opt_state)
+        data.restore(extra["data"])
+        start_step = latest
+        print(f"restored checkpoint step {latest}")
+
+    step_fn = make_train_step(cfg, total_steps=args.steps, peak_lr=args.lr,
+                              grad_compression=args.grad_compression)
+    monitor = StragglerMonitor()
+
+    history: List[Dict[str, float]] = []
+    t_start = time.time()
+    for step in range(start_step, args.steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.next_batch().items()}
+        t0 = time.time()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        _sync(device)
+        dt = time.time() - t0
+        history.append({"step": step + 1, **metrics, "seconds": dt})
+        monitor.record(0, dt)
+        if (step + 1) % args.log_every == 0:
+            print(f"step {step+1:6d} loss={metrics['loss']:.4f} "
+                  f"gnorm={metrics['grad_norm']:.3f} "
+                  f"lr={metrics['lr']:.2e} {dt*1e3:.0f}ms", flush=True)
+        if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
+            path = ckpt.save(step + 1, params, opt_state,
+                             extra={"data": data.state()})
+            print(f"checkpoint -> {path}")
+        if monitor.stragglers():
+            print("straggler detected; in production this host is evicted "
+                  "and the elastic re-mesh path rebalances the fleet")
+    total = time.time() - t_start
+    print(f"done: {args.steps - start_step} steps in {total:.1f}s")
+    return {"start_step": start_step, "history": history, "params": params,
+            "opt_state": opt_state, "data_state": data.state(), "cfg": cfg}
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,7 @@ carry weights across with :mod:`repro_torch.models.convert`).
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 import torch.nn.functional as F
@@ -29,10 +30,27 @@ def scalar_in(value: float, dtype: torch.dtype) -> float:
 
 # ----------------------------------------------------------------- initializers
 def weight(shape, device=None) -> nn.Parameter:
-    """An uninitialised f32 parameter (``param_dtype``): serving only, so
-    it takes no gradient."""
-    return nn.Parameter(torch.empty(shape, device=device),
-                        requires_grad=False)
+    """An uninitialised f32 parameter (``param_dtype``) that takes a
+    gradient; the serving entry points run under ``torch.no_grad()``."""
+    return nn.Parameter(torch.empty(shape, device=device))
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype):
+    """``module``'s tree as plain namespaces (an ``nn.ModuleList`` as a
+    list), each float32 parameter replaced by a copy cast to ``dtype``
+    under autograd, so the gradient reaches the float32 parameter.  The
+    model functions read parameters by attribute and run on it unchanged:
+    what the train step's ``cast_bf16`` feeds the loss.  The copies are
+    tensors made once, so a checkpointed block recomputes from the same
+    values it ran on."""
+    if isinstance(module, nn.ModuleList):
+        return [cast_params(m, dtype) for m in module]
+    ns = types.SimpleNamespace()
+    for name, p in module.named_parameters(recurse=False):
+        setattr(ns, name, p.to(dtype) if p.dtype == torch.float32 else p)
+    for name, m in module.named_children():
+        setattr(ns, name, cast_params(m, dtype))
+    return ns
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int

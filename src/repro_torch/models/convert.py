@@ -1,4 +1,5 @@
-"""The reference's weights and decode cache, carried across as numpy.
+"""The reference's weights, optimizer state and decode cache, carried
+across as numpy, both ways.
 
 ``params_from_jax`` takes the reference's parameter tree as nested dicts of
 numpy arrays (what ``jax.tree.map(np.asarray, params)`` gives; the caller
@@ -7,18 +8,28 @@ unstacking the reference's layer stacks: ``[L, ...]`` for the dense
 family; for ssm, ``mlstm`` leaves and ``ln_m`` ``[G, M, ...]``, ``slstm``
 leaves and ``ln_s`` ``[G, ...]``.  ``cache_from_jax`` and
 ``cache_to_numpy`` carry the decode cache both ways, nested dicts
-included, so a test can compare the two decode paths step by step.
+included, so a test can compare the two decode paths step by step; an
+int8 cache's int8 K/V and bf16 scales cross unchanged (the scales come
+out of the port as float32, exactly).
+
+``params_to_numpy`` is the inverse of ``params_from_jax``: the port's
+per-layer tensors (an ``LM``, or any mapping by parameter name, such as
+its grads or AdamW moments) stacked back into the reference's tree, so a
+test compares grads and updated parameters leaf by leaf.
+``adamw_from_jax`` and ``adamw_to_numpy`` carry the AdamW state.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..kernels._cuda import resolve_device
-from .lm import LM
+from ..optim.adamw import AdamWState
+from .lm import LM, xlstm_groups
 
 
 def to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
@@ -77,3 +88,81 @@ def cache_to_numpy(cache: Dict[str, Any]) -> Dict[str, Any]:
     return {name: cache_to_numpy(t) if isinstance(t, dict)
             else (t.float() if t.dtype == torch.bfloat16 else t)
             .cpu().numpy() for name, t in cache.items()}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy (a CPU tensor's ``numpy()`` would share its memory, and the
+    train step updates parameters in place)."""
+    t = t.detach().cpu()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+
+
+def _nest(tree: Dict[str, Any], dotted: str, value) -> None:
+    *path, leaf = dotted.split(".")
+    for part in path:
+        tree = tree.setdefault(part, {})
+    tree[leaf] = value
+
+
+def reference_leaf(name: str) -> str:
+    """The dotted path of the reference's stacked leaf that holds the
+    port's parameter ``name``: ``layers.3.attn.wq`` -> ``layers.attn.wq``;
+    ``groups.1.mlstm.4.w_in`` -> ``mlstm.w_in``; ``groups.1.ln_m`` ->
+    ``ln_m``; ``groups.1.slstm.w_out`` -> ``slstm.w_out``."""
+    for pattern, prefix in ((r"layers\.\d+\.(.+)", "layers."),
+                            (r"groups\.\d+\.mlstm\.\d+\.(.+)", "mlstm."),
+                            (r"groups\.\d+\.(.+)", "")):
+        m = re.fullmatch(pattern, name)
+        if m:
+            return prefix + m.group(1)
+    return name
+
+
+def by_reference_leaf(names) -> Dict[str, List[str]]:
+    """The port's parameter names grouped by :func:`reference_leaf`, each
+    group in stacking order (layer, or supergroup then block)."""
+    groups: Dict[str, List[str]] = {}
+    for n in names:
+        groups.setdefault(reference_leaf(n), []).append(n)
+    return groups
+
+
+def params_to_numpy(params, cfg: ArchConfig) -> Dict[str, Any]:
+    """The reference's parameter tree as numpy (bfloat16 as float32):
+    ``layers`` leaves stacked [L, ...] for the dense family; for ssm,
+    ``mlstm`` leaves and ``ln_m`` [G, M, ...], ``slstm`` leaves and
+    ``ln_s`` [G, ...]."""
+    flat = {n: _numpy(t) for n, t in (params.named_parameters()
+                                      if isinstance(params, torch.nn.Module)
+                                      else params.items())}
+    tree: Dict[str, Any] = {}
+    for key, names in by_reference_leaf(flat).items():
+        if key == names[0]:                       # not stacked
+            _nest(tree, key, flat[key])
+            continue
+        a = np.stack([flat[n] for n in names])
+        if key.startswith("mlstm."):
+            a = a.reshape(*xlstm_groups(cfg), *a.shape[1:])
+        _nest(tree, key, a)
+    return tree
+
+
+def adamw_from_jax(state, cfg: ArchConfig, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` (step, and mu and nu as parameter
+    trees of numpy arrays) as the port's: mu and nu keyed by the port's
+    parameter names."""
+    def by_name(tree):
+        return {n: p.detach() for n, p in
+                params_from_jax(tree, cfg, device).named_parameters()}
+
+    device = resolve_device(device)
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32, device=device),
+                      mu=by_name(state.mu), nu=by_name(state.nu))
+
+
+def adamw_to_numpy(state: AdamWState, cfg: ArchConfig) -> Dict[str, Any]:
+    """The port's AdamW state as ``{"step": int, "mu": tree, "nu": tree}``
+    in the reference's layout."""
+    return {"step": int(state.step), "mu": params_to_numpy(state.mu, cfg),
+            "nu": params_to_numpy(state.nu, cfg)}

@@ -14,10 +14,18 @@ decode cache is nested, as the reference's: ``mlstm.{state, conv}``
 stacked [G, M, ...], ``slstm.{h, c, n}`` stacked [G, ...], and ``pos``;
 decode updates it in place.
 
-The reference's ``jax.lax.scan`` over stacked layers, its remat and its
-sharding constraints have no counterpart here: the port runs eagerly on
-one device.  Families other than dense and ssm raise
-``NotImplementedError``.
+Two lanes run the full sequence.  Serving (:func:`forward`, under
+``torch.no_grad()``) takes the kernel lane: the hand-written flash and
+chunked-mLSTM kernels.  Training (:func:`loss_fn`) takes the train lane:
+the reference's XLA paths (``use_pallas=False``, its default) in plain
+torch under autograd, each layer checkpointed under ``cfg.remat`` with
+``torch.utils.checkpoint``, and the head fused with the cross-entropy in
+checkpointed chunks for long sequences.  Decode keeps a bf16 or an int8
+(``cfg.kv_quant``) K/V cache.
+
+The reference's ``jax.lax.scan`` over stacked layers and its sharding
+constraints have no counterpart here: the port runs eagerly on one
+device.  Families other than dense and ssm raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,10 +33,12 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..kernels._cuda import resolve_device
-from .attention import Attention, attention, decode_attention, init_kv_cache
+from .attention import (LANES, Attention, attention, decode_attention,
+                        decode_attention_quant, init_kv_cache)
 from .common import (dense_init, dtype_of, embed_init, mask_vocab_pad,
                      padded_vocab, rms_norm, scalar_in, softcap, weight)
 from .mlp import MLP, mlp
@@ -185,15 +195,6 @@ def _block(p: Block, x: torch.Tensor, cfg: ArchConfig,
     return x + f
 
 
-def _xlstm_group(p: XLSTMGroup, x: torch.Tensor, cfg: ArchConfig
-                 ) -> torch.Tensor:
-    """One supergroup, full sequence: M mLSTM blocks then one sLSTM block,
-    each pre-norm with a residual."""
-    for blk, ln in zip(p.mlstm, p.ln_m):
-        x = x + mlstm_forward(blk, rms_norm(x, ln, cfg.norm_eps), cfg)
-    return x + slstm_forward(p.slstm, rms_norm(x, p.ln_s, cfg.norm_eps), cfg)
-
-
 def _embed(params: LM, tokens: torch.Tensor, cfg: ArchConfig
            ) -> torch.Tensor:
     cdt = dtype_of(cfg.dtype)
@@ -204,23 +205,60 @@ def _embed(params: LM, tokens: torch.Tensor, cfg: ArchConfig
 
 
 # ------------------------------------------------------------------- forward
-@torch.no_grad()
+def _remat(fn: Callable, *args, on: bool):
+    """``fn(*args)``, checkpointed when ``on`` (the reference's
+    ``jax.checkpoint`` per layer under ``cfg.remat``): the backward
+    recomputes the block instead of keeping its activations."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _dense_layer(blk: Block, x: torch.Tensor, cfg: ArchConfig,
+                 positions: torch.Tensor, w: int, lane: str) -> torch.Tensor:
+    return _block(blk, x, cfg, lambda pa, h: attention(
+        pa, h, cfg, positions, window=w, lane=lane))
+
+
+def _mlstm_layer(blk: MLSTM, ln: torch.Tensor, x: torch.Tensor,
+                 cfg: ArchConfig, lane: str) -> torch.Tensor:
+    return x + mlstm_forward(blk, rms_norm(x, ln, cfg.norm_eps), cfg,
+                             lane=lane)
+
+
+def _slstm_layer(blk: SLSTM, ln: torch.Tensor, x: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    return x + slstm_forward(blk, rms_norm(x, ln, cfg.norm_eps), cfg)
+
+
 def hidden_forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
-                   frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   frontend: Optional[torch.Tensor] = None, *,
+                   lane: str = "kernel") -> torch.Tensor:
     """tokens: [B, S] int.  Returns final hidden states [B, S, D] (after
     the final norm).  ``frontend`` embeddings belong to the vlm family;
-    the dense family ignores them, as the reference does."""
+    the dense family ignores them, as the reference does.
+
+    ``lane="kernel"`` (serving) runs attention and the mLSTM through the
+    hand-written kernels, which have no backward and raise on inputs that
+    require grad: :func:`forward` calls it under ``torch.no_grad()``.
+    ``lane="train"`` (:func:`loss_fn`) runs the reference's XLA paths in
+    plain torch under autograd, each layer checkpointed when
+    ``cfg.remat``.  The caller picks the lane; nothing falls back."""
+    if lane not in LANES:
+        raise ValueError(f"lane must be one of {LANES}, got {lane!r}")
+    remat = lane == "train" and cfg.remat
     x = _embed(params, tokens, cfg)
     if cfg.family == "ssm":
         for grp in params.groups:
-            x = _xlstm_group(grp, x, cfg)
+            for blk, ln in zip(grp.mlstm, grp.ln_m):
+                x = _remat(_mlstm_layer, blk, ln, x, cfg, lane, on=remat)
+            x = _remat(_slstm_layer, grp.slstm, grp.ln_s, x, cfg, on=remat)
         return rms_norm(x, params.final_norm, cfg.norm_eps)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     for blk, w in zip(params.layers, layer_windows(cfg)):
-        x = _block(blk, x, cfg, lambda pa, h: attention(
-            pa, h, cfg, positions, window=w))
+        x = _remat(_dense_layer, blk, x, cfg, positions, w, lane, on=remat)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -244,12 +282,71 @@ def forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
     return _logits(params, hidden_forward(params, tokens, cfg, frontend), cfg)
 
 
+# ---------------------------------------------------------------------- loss
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor
+               ) -> torch.Tensor:
+    """logsumexp minus the target's logit, per token, in f32."""
+    logits = logits.float()
+    return torch.logsumexp(logits, dim=-1) \
+        - logits.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    return _token_nll(logits, targets).mean()
+
+
+CE_CHUNK = 512
+
+
+def _ce_chunk_sum(xc: torch.Tensor, head: torch.Tensor, tc: torch.Tensor,
+                  cap: float, vocab: int) -> torch.Tensor:
+    logits = (xc @ head).float()
+    if cap > 0:
+        logits = softcap(logits, cap)
+    return _token_nll(mask_vocab_pad(logits, vocab), tc).sum()
+
+
+def chunked_head_ce(x: torch.Tensor, head: torch.Tensor,
+                    targets: torch.Tensor, cap: float, vocab: int,
+                    chunk: int = CE_CHUNK) -> torch.Tensor:
+    """Fused final projection + CE over sequence chunks of ``chunk``: never
+    forms the whole [B, S, V] logits.  Each chunk is checkpointed (the
+    reference's ``jax.checkpoint`` on its scan body), so the backward
+    re-forms one chunk's logits at a time.  The chunk sums add up in
+    order, from 0, as the reference's scan carries them."""
+    B, S, _ = x.shape
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S, chunk):
+        total = total + checkpoint(
+            _ce_chunk_sum, x[:, c:c + chunk], head, targets[:, c:c + chunk],
+            cap, vocab, use_reentrant=False)
+    return total / (B * S)
+
+
+def loss_fn(params: LM, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: ArchConfig, frontend: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Next-token cross-entropy averaged over target tokens (a 0-dim f32
+    tensor), through the training lane of :func:`hidden_forward`.  The
+    head and CE are chunked (:func:`chunked_head_ce`) when S is a multiple
+    of :data:`CE_CHUNK` above it, as in the reference."""
+    x = hidden_forward(params, tokens, cfg, frontend, lane="train")
+    S = x.shape[1]
+    if S % CE_CHUNK == 0 and S > CE_CHUNK and not cfg.cost_analysis_mode:
+        return chunked_head_ce(x, _head(params, cfg, x.dtype), targets,
+                               cfg.logit_softcap, cfg.vocab_size)
+    return cross_entropy(_logits(params, x, cfg), targets)
+
+
 # --------------------------------------------------------------------- decode
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"
                ) -> Dict[str, Any]:
     """Decode state on ``device`` (default ``"cuda"``, as
     :func:`init_params`).  Dense: bf16 ``k``, ``v`` [L, B, max_len, Hkv,
-    hd] and the int32 per-sequence position ``pos`` [B].  Ssm: the
+    hd] and the int32 per-sequence position ``pos`` [B]; under
+    ``cfg.kv_quant`` int8 ``k``, ``v`` with bf16 ``k_scale``, ``v_scale``
+    [L, B, max_len, Hkv].  Ssm: the
     recurrent states (``max_len`` unused) ``mlstm.state`` f32 [G, M, B, H,
     P, P+1], ``mlstm.conv`` bf16 [G, M, B, K-1, d_inner], ``slstm.{h, c,
     n}`` f32 [G, B, H, d/H], and ``pos``."""
@@ -286,6 +383,11 @@ def decode_step(params: LM, tokens: torch.Tensor,
                 grp.slstm, rms_norm(x, grp.ln_s, cfg.norm_eps), cfg,
                 sc["h"][g], sc["c"][g], sc["n"][g])
             x = x + y
+    elif cfg.kv_quant:
+        for i, (blk, w) in enumerate(zip(params.layers, layer_windows(cfg))):
+            x = _block(blk, x, cfg, lambda pa, h: decode_attention_quant(
+                pa, h, cfg, cache["k"][i], cache["v"][i],
+                cache["k_scale"][i], cache["v_scale"][i], pos, window=w)[0])
     else:
         for i, (blk, w) in enumerate(zip(params.layers, layer_windows(cfg))):
             x = _block(blk, x, cfg, lambda pa, h: decode_attention(

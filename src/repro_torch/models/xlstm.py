@@ -9,8 +9,9 @@ y_t = (C_t^T q_t) / max(|n_t^T q_t|, 1) runs over the whole sequence in
 :func:`mlstm_forward` through the chunked-mLSTM dispatcher
 (``kernels.mlstm_chunk.ops``): the hand-written CUDA kernel for a CUDA
 tensor, its plain version for a CPU tensor.  Like the port's attention it
-does not read ``cfg.use_pallas``.  ``_ssd_scan_perhead``, the
-reference's XLA-path counterpart, is kept for the tests.
+does not read ``cfg.use_pallas``.  The kernel has no backward (nor has the
+reference's Pallas kernel), so training takes ``_ssd_scan_perhead``, the
+reference's XLA path, in plain torch under autograd (``lane="train"``).
 
 The sLSTM's time loop is sequential (the reference's ``lax.scan``, with no
 Pallas kernel behind it): here a Python loop of plain torch ops, one step
@@ -73,9 +74,13 @@ class MLSTM(nn.Module):
         return self
 
 
-def mlstm_forward(p: MLSTM, x: torch.Tensor, cfg: ArchConfig
-                  ) -> torch.Tensor:
-    """x: [B, S, d_model] -> [B, S, d_model]."""
+def mlstm_forward(p: MLSTM, x: torch.Tensor, cfg: ArchConfig,
+                  lane: str = "kernel") -> torch.Tensor:
+    """x: [B, S, d_model] -> [B, S, d_model].  ``lane="kernel"`` runs the
+    recurrence through the chunked-mLSTM kernel (no backward: it raises on
+    inputs that require grad); ``lane="train"`` through
+    :func:`_ssd_scan_perhead` under autograd, the reference's path with
+    ``use_pallas=False``."""
     d_inner, H, P = mlstm_dims(cfg)
     B, S, _ = x.shape
     xz = x @ p.w_in.to(x.dtype)
@@ -92,10 +97,16 @@ def mlstm_forward(p: MLSTM, x: torch.Tensor, cfg: ArchConfig
     vv = torch.cat([v.float(), v.new_ones(B, S, H, 1, dtype=torch.float32)],
                    dim=-1)
     # the readout sum_{s<=t} exp(cum_t - cum_s) ig_s (q_t.k_s) vv_s plus
-    # the carried state, f32, whatever cfg.use_pallas says: the device
-    # decides between the kernel and its plain version
-    num_den = mc_ops.mlstm_chunk(q.float() * _inv_sqrt(P), k.float(), vv,
-                                 ig, la, chunk=cfg.xlstm.chunk)
+    # the carried state, f32, whatever cfg.use_pallas says: in the kernel
+    # lane the device decides between the kernel and its plain version
+    if lane == "kernel":
+        num_den = mc_ops.mlstm_chunk(q.float() * _inv_sqrt(P), k.float(),
+                                     vv, ig, la, chunk=cfg.xlstm.chunk)
+    elif lane == "train":
+        num_den = _ssd_scan_perhead(q.float() * _inv_sqrt(P), k.float(), vv,
+                                    ig, la, cfg.xlstm.chunk)
+    else:
+        raise ValueError(f"lane must be 'kernel' or 'train', got {lane!r}")
     num, den = num_den[..., :P], num_den[..., P:]
     y = num / torch.clamp(den.abs(), min=1.0)
     y = y.reshape(B, S, d_inner).to(x.dtype)
@@ -108,8 +119,9 @@ def _ssd_scan_perhead(q, k, v, ig, la, chunk: int) -> torch.Tensor:
     (B, C) = (k, q) and data-dependent log-decay ``la`` [B,S,H]) in plain
     torch: chunk-local readout, per-chunk state contributions, a
     sequential pass over the chunks, the carried readout.  Shapes: q, k
-    [B,S,H,P]; v [B,S,H,Pv].  Kept to hold the kernel's dispatcher against
-    in the tests; the model does not call it."""
+    [B,S,H,P]; v [B,S,H,Pv].  The training lane of :func:`mlstm_forward`
+    (differentiable), and what the tests hold the kernel's dispatcher
+    against."""
     Bb, S, H, P = q.shape
     Pv = v.shape[-1]
     c = min(chunk, S)

@@ -1,12 +1,21 @@
-"""Serve-step factories: the port of the reference's
-``repro.train.step.make_prefill_step`` / ``make_decode_step``.
+"""Train-step and serve-step factories: the port of the reference's
+``repro.train.step``.
+
+``make_train_step`` builds the update: loss -> grad -> global-norm clip ->
+AdamW -> new params, as the reference's does.  The loss runs the models'
+training lane (plain torch under autograd; the hand-written kernels have
+no backward); under ``cast_bf16`` it runs on bf16 copies of the f32
+parameters (``models.common.cast_params``), so the gradients come back to
+the f32 masters in f32.  The learning rate is the schedule at the step
+counter *before* the update (the first update of a fresh state has lr 0
+during warm-up), and the update overwrites the module's parameters and
+the AdamW moments in place, leaf by leaf (``optim.adamw.adamw_update_``),
+as the reference's launcher donates both.
 
 ``make_prefill_step`` runs the whole prompt through the full-sequence
 forward (on the card: the flash-attention kernel for the dense family,
 the chunked-mLSTM kernel once per mLSTM block for xlstm) and returns the
-last position's logits; ``make_decode_step`` takes one greedy token.  The
-training step (``make_train_step``, AdamW, schedules) belongs to a later
-slice.
+last position's logits; ``make_decode_step`` takes one greedy token.
 """
 from __future__ import annotations
 
@@ -16,6 +25,78 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import api
+from ..models.common import cast_params
+from ..models.convert import by_reference_leaf
+from ..optim.adamw import (AdamWState, adamw_update_, clip_by_global_norm,
+                           init_adamw)
+from ..optim.compression import compress, decompress, init_residuals
+from ..optim.schedules import cosine_schedule, wsd_schedule
+
+
+def constrain_like_params(tree):
+    """The reference pins grads and moments to the parameter shardings of
+    its active mesh; on one device there is none, so the tree comes back
+    unchanged (as the reference's does with no mesh)."""
+    return tree
+
+
+def lr_for(cfg: ArchConfig, step, total_steps: int = 10_000,
+           peak_lr: float = 3e-4) -> torch.Tensor:
+    if cfg.name.startswith("minicpm"):
+        # MiniCPM trains with WSD (arXiv:2404.06395)
+        return wsd_schedule(step, peak_lr=peak_lr, warmup_steps=100,
+                            stable_steps=int(total_steps * 0.8),
+                            decay_steps=int(total_steps * 0.1))
+    return cosine_schedule(step, peak_lr=peak_lr, warmup_steps=100,
+                           total_steps=total_steps)
+
+
+def _compress_roundtrip(grads: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Error-feedback int8 within the step (residual from zero), as the
+    reference applies it, with one scale per leaf of the *reference's*
+    tree: the per-layer grads it stacks ([L, ...], [G, M, ...]) share one
+    scale, so the numbers are the reference's."""
+    groups = by_reference_leaf(grads)
+    stacked = {k: torch.stack([grads[n] for n in names])
+               for k, names in groups.items()}
+    q, scales, _ = compress(stacked, init_residuals(stacked))
+    deq = decompress(q, scales)
+    return {n: deq[k][i] for k, names in groups.items()
+            for i, n in enumerate(names)}
+
+
+def make_train_step(cfg: ArchConfig, total_steps: int = 10_000,
+                    peak_lr: float = 3e-4, max_grad_norm: float = 1.0,
+                    cast_bf16: bool = True,
+                    grad_compression: bool = False) -> Callable:
+    def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
+        """params: an ``lm.LM`` and opt_state its AdamW state (both
+        updated in place; returned); batch:
+        ``tokens`` and ``targets`` [B, S] integer tensors on its device.
+        Returns (params, opt_state, metrics) with 0-dim tensors ``loss``,
+        ``grad_norm`` and ``lr``."""
+        named = dict(params.named_parameters())
+        with torch.enable_grad():
+            # bf16 copies made once at step entry, f32 masters kept for
+            # the optimizer (the reference's cast_bf16)
+            p = cast_params(params, torch.bfloat16) if cast_bf16 \
+                else params
+            loss_val = api.loss_fn(p, batch["tokens"], batch["targets"],
+                                   cfg, batch.get("frontend"))
+            grads = dict(zip(named, torch.autograd.grad(
+                loss_val, list(named.values()))))
+            del p
+        if grad_compression:
+            grads = _compress_roundtrip(grads)
+        grads = constrain_like_params(grads)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        lr = lr_for(cfg, opt_state.step, total_steps, peak_lr)
+        opt_state = adamw_update_(grads, opt_state, named, lr)
+        metrics = {"loss": loss_val.detach(), "grad_norm": gnorm, "lr": lr}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
@@ -35,3 +116,8 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
         return next_token.to(torch.int32), cache
 
     return decode_step
+
+
+def init_train_state(key, cfg: ArchConfig, *, device="cuda"):
+    params = api.init_params(key, cfg, device=device)
+    return params, init_adamw(params)

@@ -584,3 +584,103 @@ def test_xlstm_prefill_launches_one_kernel_per_mlstm_block(dev):
     assert np.array_equal(ServeEngine(cfg, params, 2, 16).generate(prompts, 4),
                           ServeEngine(cfg, cpu_params, 2, 16).generate(
                               prompts, 4))
+
+
+# ---------------------------------------------------------- training, int8
+def test_flash_kernel_at_minicpms_mha_shape(dev):
+    """minicpm-2b's attention: 36 query heads over 36 K/V heads (group
+    size 1), hd 64, bf16, causal, on the tensor-core route; the bf16
+    tolerance of chip_smoke.py phase 8 (one bf16 step, 2^-7, or 1e-3)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 1024, 36, 36, 64,
+                            seed=36)
+    routes = dict(_cuda.FLASH.route_launches)
+    got = fk.flash_attention_bhsd(q, k, v, group_size=1)
+    torch.cuda.synchronize()
+    assert _cuda.FLASH.route_launches["tensor_core_bf16"] == \
+        routes["tensor_core_bf16"] + 1
+    want = fr.attention_ref(q, k, v, group_size=1)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+
+
+def test_the_kernel_lane_raises_under_grad_on_the_card(dev):
+    """The CUDA kernels have no backward: handed tensors that require grad
+    they raise before launching, and the models' kernel lane with them."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.models import api, lm
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 64, 2, 1, 64)
+    before = (_cuda.FLASH.launches, _cuda.MLSTM.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fk.flash_attention_bhsd(q.requires_grad_(), k, v, group_size=2)
+    qm, km, vm, ig, la = _mlstm_inputs(dev, 2, 32, 16, 17)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mk.mlstm_chunk_bhsd(qm, km.requires_grad_(), vm, ig, la, chunk=16)
+    for name in ("smollm-135m", "xlstm-1.3b"):
+        cfg = get_arch(name).smoke()
+        params = api.init_params(0, cfg, device=dev)
+        toks = torch.zeros(1, 16, dtype=torch.long, device=dev)
+        with pytest.raises(RuntimeError, match="no backward"):
+            lm.hidden_forward(params, toks, cfg)
+    assert (_cuda.FLASH.launches, _cuda.MLSTM.launches) == before
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "xlstm-1.3b"])
+def test_train_step_on_the_card_matches_the_cpu(dev, name):
+    """One make_train_step (f32, from step 150 so the update moves the
+    weights) on the card and on the CPU from the same weights and batch:
+    loss, grad norm and the updated weights within 1e-4; no kernel of
+    ours launched (the training lane is plain torch)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train.step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(name).smoke()
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        params = api.init_params(0, cfg, device=d)
+        opt = init_adamw(params)
+        opt = opt._replace(step=opt.step + 150)
+        batch = {"tokens": torch.from_numpy(toks).to(d),
+                 "targets": torch.from_numpy(np.roll(toks, -1, 1)).to(d)}
+        before = (_cuda.FLASH.launches, _cuda.MLSTM.launches)
+        params, opt, m = make_train_step(cfg, cast_bf16=False)(
+            params, opt, batch)
+        assert (_cuda.FLASH.launches, _cuda.MLSTM.launches) == before
+        out[d.type] = (m, {n: p.detach().cpu()
+                           for n, p in params.named_parameters()})
+    (mg, pg), (mc, pc) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-4,
+                                   atol=0)
+    for n in pc:
+        torch.testing.assert_close(pg[n], pc[n], rtol=1e-4, atol=1e-4)
+
+
+def test_int8_decode_on_the_card_matches_the_cpu(dev):
+    """minicpm-2b's smoke config (kv_quant on): six decode steps on the
+    card and on the CPU, logits within 1e-3 (f32 compute; the int8 rows
+    may differ by one LSB at rounding ties)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("minicpm-2b").smoke()
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 6)))
+    logits = {}
+    for d in (dev, torch.device("cpu")):
+        params = api.init_params(0, cfg, device=d)
+        cache = api.init_cache(cfg, 2, 8, device=d)
+        assert cache["k"].dtype == torch.int8
+        logits[d.type] = []
+        for t in range(6):
+            lg, cache = api.decode_step(params, toks[:, t:t + 1].to(d),
+                                        cache, cfg)
+            logits[d.type].append(lg.cpu())
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)

@@ -140,8 +140,9 @@ def test_params_carry_across_and_init_has_the_references_shapes(model):
     ref_tree = jax.tree.map(np.asarray, rp)
     n_ref = sum(a.size for a in jax.tree.leaves(ref_tree))
     assert sum(p.numel() for p in tp.parameters()) == n_ref
-    np.testing.assert_array_equal(tp.embed.numpy(), ref_tree["embed"])
-    np.testing.assert_array_equal(tp.layers[1].attn.wq.numpy(),
+    np.testing.assert_array_equal(tp.embed.detach().numpy(),
+                                  ref_tree["embed"])
+    np.testing.assert_array_equal(tp.layers[1].attn.wq.detach().numpy(),
                                   ref_tree["layers"]["attn"]["wq"][1])
     fresh = api.init_params(7, tcfg, device="cpu")
     assert {n: tuple(p.shape) for n, p in fresh.named_parameters()} == \
@@ -150,7 +151,7 @@ def test_params_carry_across_and_init_has_the_references_shapes(model):
                             device="cpu")
     for a, b in zip(fresh.parameters(), again.parameters()):
         assert torch.equal(a, b)
-    assert all(not p.requires_grad for p in fresh.parameters())
+    assert all(p.requires_grad for p in fresh.parameters())
 
 
 # ------------------------------------------------------------------ forward
@@ -323,16 +324,6 @@ def test_families_not_ported_raise(name):
         api.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.init_cache(cfg, 1, 8, device="cpu")
-
-
-def test_kv_quant_is_not_ported_yet():
-    cfg = get_arch("minicpm-2b").smoke()
-    assert cfg.kv_quant and cfg.family == "dense"
-    params = api.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        api.init_cache(cfg, 1, 8, device="cpu")
-    assert api.forward(params, torch.zeros(1, 4, dtype=torch.long),
-                       cfg).shape[:2] == (1, 4)
 
 
 def test_cuda_default_raises_without_a_card():

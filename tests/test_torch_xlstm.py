@@ -100,11 +100,12 @@ def test_params_carry_across_and_init_has_the_references_shapes(model):
     G, M = lm.xlstm_groups(tcfg)
     assert tree["mlstm"]["w_q"].shape[:2] == (G, M)
     assert len(tp.groups) == G and len(tp.groups[0].mlstm) == M
-    np.testing.assert_array_equal(tp.groups[G - 1].mlstm[M - 1].w_q.numpy(),
+    np.testing.assert_array_equal(tp.groups[G - 1].mlstm[M - 1].w_q.detach().numpy(),
                                   tree["mlstm"]["w_q"][G - 1, M - 1])
-    np.testing.assert_array_equal(tp.groups[G - 1].slstm.r_gates.numpy(),
+    np.testing.assert_array_equal(
+        tp.groups[G - 1].slstm.r_gates.detach().numpy(),
                                   tree["slstm"]["r_gates"][G - 1])
-    np.testing.assert_array_equal(tp.groups[G - 1].ln_m.numpy(),
+    np.testing.assert_array_equal(tp.groups[G - 1].ln_m.detach().numpy(),
                                   tree["ln_m"][G - 1])
     assert "lm_head" not in tree and not hasattr(tp, "lm_head")   # tied
     fresh = api.init_params(7, tcfg, device="cpu")
@@ -114,7 +115,7 @@ def test_params_carry_across_and_init_has_the_references_shapes(model):
                             device="cpu")
     for a, b in zip(fresh.parameters(), again.parameters()):
         assert torch.equal(a, b)
-    assert all(not p.requires_grad for p in fresh.parameters())
+    assert all(p.requires_grad for p in fresh.parameters())
 
 
 def test_full_width_parameter_count_is_the_references():
@@ -141,18 +142,25 @@ def test_causal_conv_matches_the_reference():
 
 
 def test_blocks_match_the_reference(model):
-    """One mLSTM and one sLSTM block alone, on the same input."""
+    """One mLSTM and one sLSTM block alone, on the same input: the mLSTM
+    through the kernel lane (under no_grad, as serving runs it) and
+    through the training lane (``_ssd_scan_perhead`` under autograd)."""
     rcfg, rp, tcfg, tp = model
     x = np.random.default_rng(1).standard_normal(
         (2, 32, tcfg.d_model)).astype(np.float32)
     tree = jax.tree.map(np.asarray, rp)
     r_m = jax.tree.map(lambda a: jnp.asarray(a[0, 0]), tree["mlstm"])
     r_s = jax.tree.map(lambda a: jnp.asarray(a[0]), tree["slstm"])
-    _close(xlstm.mlstm_forward(tp.groups[0].mlstm[0], torch.from_numpy(x),
-                               tcfg),
-           ref_xlstm.mlstm_forward(r_m, jnp.asarray(x), rcfg))
+    want = ref_xlstm.mlstm_forward(r_m, jnp.asarray(x), rcfg)
+    with torch.no_grad():
+        _close(xlstm.mlstm_forward(tp.groups[0].mlstm[0],
+                                   torch.from_numpy(x), tcfg), want)
+    got = xlstm.mlstm_forward(tp.groups[0].mlstm[0], torch.from_numpy(x),
+                              tcfg, lane="train")
+    assert got.requires_grad
+    _close(got.detach(), want)
     _close(xlstm.slstm_forward(tp.groups[0].slstm, torch.from_numpy(x),
-                               tcfg),
+                               tcfg).detach(),
            ref_xlstm.slstm_forward(r_s, jnp.asarray(x), rcfg))
 
 
