@@ -46,7 +46,10 @@ Phases, each printing its own line:
      seeded inputs: (a) smollm-135m's attention, B 4, S 4096, 9 heads over
      3, hd 64, bf16, causal; (b) gemma2-2b's, B 1, S 8192, 8 heads over 4,
      hd 256, bf16, window 4096, softcap 50; (c) f32, ragged S = 1000,
-     hd 32.  (a) and (b) must take the tensor-core route, (c) the f32
+     hd 32; (d) granite-moe-3b-a800m's, B 2, S 2048, 24 heads over 8;
+     (e) hymba-1.5b's, 25 over 5, window 1024; (f) internvl2-1b's, S 2304
+     (256 patches + 2048 tokens), 14 over 2; (d)-(f) hd 64, bf16,
+     causal.  All but (c) must take the tensor-core route, (c) the f32
      FMA route (the wrapper's per-route launch counters);
   9-10. the LM serving path on smollm-135m at its published widths (30
      layers, d_model 576) with seeded random weights, through the entry
@@ -233,7 +236,39 @@ Phases, each printing its own line:
      time and peak memory; (c) one ``make_train_step`` at smollm-135m's
      smoke size in float32 on the card and on the CPU from the same
      weights and batch: loss, grad norm and weights within 1e-4.
-     Before phase 19 the serving phases' weights and caches are released.
+     Before phase 19 the serving phases' weights and caches are released;
+  22. the moe, hybrid, vlm and encoder-decoder families at their
+     published widths and depths, with seeded random weights drawn on the
+     card, each released before the next: (a) granite-moe-3b-a800m (40
+     experts padded to 48, top-8), (b) hymba-1.5b (window 1024 on every
+     layer, SSM heads 50 x 64, chunk 256), (c) internvl2-1b (256 stand-in
+     patches), (d) seamless-m4t-medium (12 + 12 layers, 512 stand-in
+     frames).  Each through the entry points a user calls: the prefill
+     step (B 2 x S 2048, bf16), ``ServeEngine.generate`` (4 prompts of 64
+     tokens, 16 new) and ``ContinuousBatchingEngine.run`` (6 requests of
+     16 tokens over 4 slots, 8 new each); launch counts are zeroed just
+     before and read just after these three calls: the flash kernel must
+     have run once per (decoder) attention layer (32, 32, 24, 12), all on
+     the tensor-core route, and no other kernel.  Then the prefill's
+     logits against ``plain_kernels()`` in float32 (1e-3) and in bf16
+     (0.1, or the plain lane's own bf16 error, its bf16 logits against its
+     float32 ones, where that is larger);
+     for granite both lanes record their expert routes, the token-layers
+     whose expert sets differ are counted (in float32 each must be a
+     near-tie, a gap under 1e-3, or follow an earlier flip in its
+     sequence), and the plain lane is compared on the kernel lane's
+     experts.  The prefill against the decode path in float32 (2 x 32
+     tokens; 2e-2, hymba 3e-2: the reference's bounds; granite's decode on
+     the prefill's experts; seamless in a direct loop with ``cache["enc"]
+     = encode(frames)``, the engines keeping their zero ``enc`` as the
+     reference's do); the engines' outputs; timings: the prefill's median,
+     decode tokens/s, the busy share, peak memory, and the flash kernel
+     at the family's shape beside its plain version,
+     ``scaled_dot_product_attention`` (hymba's window as a boolean mask,
+     with the SDPA backends that take it) and its bound.  (e) two
+     ``make_train_step`` steps of hymba-1.5b at B 1 x S 2048 (remat):
+     finite losses and grad norms, no kernel launched, step time, peak
+     memory.
      The run's total time is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
@@ -271,6 +306,10 @@ TF32_FLOPS_PER_S = 495e12
 # and GEN10 new; 12 requests of REQ10 tokens and REQ_GEN10 new over 8 slots
 # (shortened from 128 + 32 and 32 + 16 to keep the whole run near 10 min)
 PROMPT10, GEN10, REQ10, REQ_GEN10 = 32, 16, 8, 8
+# phase 22: prefill B x S; ServeEngine prompts x (prompt + new); continuous
+# batching requests x (prompt + new) over slots; hymba's train steps
+PREFILL22, SERVE22, CB22 = (2, 2048), (4, 64, 16), (6, 16, 8, 4)
+TRAIN22_STEPS, TRAIN22_SEQ = 2, 2048
 FAILURES = []
 
 
@@ -1040,6 +1079,433 @@ def main():
         late["train_launches"] = train_launches
         return late
 
+    # ------------------------------------------------------------ phase 22
+    def family_phases():
+        """Phase 22: the moe, hybrid, vlm and encoder-decoder families at
+        published widths, served ((a)-(d)), and one hymba train step
+        ((e)).  Returns what the kernel record takes from them."""
+        import warnings
+
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        from repro_torch.models import encdec
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models.frontends import synthetic_frontend
+        from repro_torch.optim.adamw import init_adamw
+        from repro_torch.train.step import make_train_step
+
+        fam = {"launches": {}, "flash": [], "errors": {}}
+        B, S = PREFILL22
+        n_prompts, p_len, n_new = SERVE22
+        n_req, r_len, r_new, slots = CB22
+        route0 = moe_mod._route
+
+        class Routes:
+            """Stands in for ``moe._route`` in the comparisons (never on
+            the counted run): records each call's experts and the gap
+            between each token's k-th and (k+1)-th router logit, or, with
+            ``replay(n, x)``, routes call n to the experts it gives, with
+            this lane's own softmax weights over their logits."""
+
+            def __init__(self, replay=None):
+                self.idx, self.gap, self.replay, self.n = [], [], replay, 0
+
+            def __call__(self, p, x, mo):
+                logits = x.float() @ p.router.float()
+                if self.replay is not None:
+                    idx = self.replay(self.n, x)
+                    self.n += 1
+                    return torch.softmax(logits.gather(-1, idx.long()),
+                                         -1), idx
+                w, idx = route0(p, x, mo)
+                top = torch.topk(logits[..., :mo.num_experts],
+                                 mo.top_k + 1, dim=-1).values
+                self.idx.append(idx.sort(-1).values)
+                self.gap.append(top[..., -2] - top[..., -1])
+                return w, idx
+
+        @contextlib.contextmanager
+        def routes(rec):
+            moe_mod._route = rec
+            try:
+                yield rec
+            finally:
+                moe_mod._route = route0
+
+        def flips(a, b, tie):
+            """(token-layers whose expert sets differ between two runs of
+            the same calls [B, S] per layer, those of them that nothing
+            explains: a gap of at least ``tie`` in b's lane, and no flip
+            in an earlier layer at this or an earlier position of the
+            sequence, whose change attention would carry here)."""
+            n = bad = 0
+            seen = None
+            for x, y, g in zip(a.idx, b.idx, b.gap):
+                f = (x != y).any(-1)
+                seen = torch.zeros_like(f) if seen is None else seen
+                n += int(f.sum())
+                bad += int((f & ~seen & (g >= tie)).sum())
+                seen |= f.cumsum(-1) > 0
+            return n, bad
+
+        def lane(fn, moe_on, rec=None):
+            if not moe_on:
+                return fn(), None
+            with routes(rec or Routes()) as r:
+                return fn(), r
+
+        def sdpa_call(q, k, v, Bq, H, Hkv, window):
+            """One PyTorch call of the same function; a window takes a
+            boolean mask, which not every SDPA backend accepts."""
+            Sq, hd = q.shape[1:]
+            kw = {"enable_gqa": H != Hkv}
+            if window:
+                i = torch.arange(Sq, device=q.device)
+                kw["attn_mask"] = (i[None] <= i[:, None]) & \
+                    (i[None] > i[:, None] - window)
+            else:
+                kw["is_causal"] = True
+            args = (q.view(Bq, H, Sq, hd), k.view(Bq, Hkv, Sq, hd),
+                    v.view(Bq, Hkv, Sq, hd))
+            return (lambda: torch.nn.functional.scaled_dot_product_attention(
+                *args, **kw)), args, kw
+
+        def backends(args, kw):
+            ok = []
+            for b in (SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    try:
+                        with sdpa_kernel([b]):
+                            torch.nn.functional.scaled_dot_product_attention(
+                                *args, **kw)
+                        ok.append(b.name)
+                    except RuntimeError:
+                        pass
+            return ok
+
+        def family(tag, name):
+            cfg = get_arch(name)
+            moe_on = cfg.family == "moe"
+            audio = cfg.family == "audio"
+            n_attn = cfg.num_layers        # decoder layers for audio
+            out, err = {}, {}
+            with phase(f"22 ({tag}) {name} prefill + serving (counted)"):
+                t0 = time.perf_counter()
+                params = api.init_params(torch.Generator(device=dev)
+                                         .manual_seed(0), cfg, device=dev)
+                sync()
+                out["params"] = params
+                log(f"  {name} ({cfg.family}): "
+                    f"{sum(p.numel() for p in params.parameters())} "
+                    f"parameters, {cfg.num_layers} layers"
+                    f"{f' + {cfg.encoder_layers} encoder' if audio else ''}"
+                    f", d_model {cfg.d_model}, heads {cfg.num_heads}/"
+                    f"{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, vocab "
+                    f"{cfg.vocab_size}, window {cfg.sliding_window}, "
+                    f"frontend {cfg.frontend_tokens}, dtype {cfg.dtype} "
+                    f"(init on the card {time.perf_counter() - t0:.2f} s)")
+                r = np.random.default_rng(22)
+                batch = {"tokens": torch.from_numpy(r.integers(
+                    0, cfg.vocab_size, (B, S))).to(dev)}
+                fe = synthetic_frontend(cfg, B, 0, device=dev)
+                if fe is not None:
+                    batch["frontend"] = fe
+                out["batch"] = batch
+                prompts = r.integers(0, cfg.vocab_size, (n_prompts, p_len))
+                requests = [r.integers(0, cfg.vocab_size, r_len)
+                            for _ in range(n_req)]
+                out["prompts"], out["requests"] = prompts, requests
+                prefill = make_prefill_step(cfg)
+                sync()
+                for lib in _cuda.LIBS:
+                    lib.reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out["prefill"] = prefill(params, batch)
+                sync()
+                out["prefill_s"] = time.perf_counter() - t0
+                out["prefill_peak"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out["generate"] = ServeEngine(
+                    cfg, params, batch=n_prompts, max_len=128).generate(
+                        prompts, n_new)
+                sync()
+                out["generate_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                cb = ContinuousBatchingEngine(cfg, params, batch=slots,
+                                              max_len=128)
+                out["cb"] = cb.run(requests, r_new)
+                sync()
+                out["cb_s"] = time.perf_counter() - t0
+                out["serve_peak"] = torch.cuda.max_memory_allocated()
+                if audio:
+                    check(not cb.cache["enc"].any(), "the engine wrote enc")
+                del cb
+                launches = {lib.name: lib.launches for lib in _cuda.LIBS}
+                routes_ = dict(_cuda.FLASH.route_launches)
+                fam["launches"][name] = launches["flash_attention"]
+                extra = f" + {cfg.frontend_tokens} frontend" \
+                    if fe is not None else ""
+                log(f"  prefill B={B} S={S}{extra}"
+                    f": {out['prefill_s']:.3f} s (first call); generate "
+                    f"{n_prompts}x({p_len}+{n_new}): {out['generate_s']:.3f}"
+                    f" s; continuous batching {n_req}x({r_len}+{r_new}) "
+                    f"over {slots} slots: {out['cb_s']:.3f} s [{card}]")
+                log(f"launches on the {name} path: {launches}; flash routes "
+                    f"{routes_}")
+                check(launches["flash_attention"] == n_attn and
+                      routes_["tensor_core_bf16"] == n_attn,
+                      f"flash kernel launched {launches['flash_attention']}"
+                      f" times ({routes_}) in one prefill, not once per "
+                      f"attention layer ({n_attn}) on the tensor-core route")
+                check(all(n == 0 for lib, n in launches.items()
+                          if lib != "flash_attention"),
+                      f"another kernel launched: {launches}")
+            if "cb" not in out:
+                return out
+            params, batch = out["params"], out["batch"]
+
+            with phase(f"22 ({tag}) {name}: prefill vs plain versions "
+                       f"(bf16, float32) and vs decode (float32); serving "
+                       f"outputs"):
+                got = out["prefill"].float()
+                vp = params.embed.shape[0]
+                check(tuple(got.shape) == (B, vp) and
+                      bool(torch.isfinite(got).all()),
+                      f"prefill logits not finite or of shape ({B}, {vp})")
+                # bf16: at most 0.1 (phase 9's limit), or the plain lane's
+                # own bf16 error where that is larger: its bf16 logits
+                # against its float32 ones (the same weights and tokens)
+                plain = {}
+                for dt_name, c in (("bf16", cfg),
+                                   ("f32", cfg.replace(dtype="float32"))):
+                    pf = make_prefill_step(c)
+                    got, rk = lane(lambda: pf(params, batch), moe_on)
+                    with plain_kernels():
+                        want, rp = lane(lambda: pf(params, batch), moe_on)
+                        plain[dt_name] = want.float()
+                        note = ""
+                        if moe_on:
+                            free = want
+                            # the plain lane on the kernel lane's experts
+                            want, _ = lane(lambda: pf(params, batch), True,
+                                           Routes(lambda n, x: rk.idx[n]))
+                            n_flip, n_bad = flips(rk, rp, 1e-3)
+                            spread = torch.cat([g.flatten() for g in
+                                                rp.gap]).median().item()
+                            err[f"{dt_name}_routes_differ"] = n_flip
+                            err[f"{dt_name}_free"] = (
+                                got.float() - free.float()).abs().max().item()
+                            note = (f"; expert sets differ on {n_flip} of "
+                                    f"{B * S * n_attn} token-layers "
+                                    f"({n_bad} at a gap >= 1e-3 with no "
+                                    f"earlier flip; median k-th gap "
+                                    f"{spread:.3g}); free-routed max abs "
+                                    f"diff {err[f'{dt_name}_free']:.3g}, "
+                                    f"the plain lane on the kernel lane's "
+                                    f"experts")
+                            if dt_name == "f32":
+                                check(n_bad == 0, f"float32: {n_bad} expert"
+                                      f" flips not explained by a near-tie")
+                    err[dt_name] = (got.float() - want.float()).abs().max() \
+                        .item()
+                    top = want.float()[:, :cfg.vocab_size].abs().max()
+                    same = torch.equal(got.argmax(-1), want.argmax(-1))
+                    log(f"  {dt_name}: max abs diff {err[dt_name]:.3g} "
+                        f"(max |logit| {top.item():.3g}; argmax agree "
+                        f"{same}){note}")
+                    del got, want
+                err["plain_bf16_vs_f32"] = (
+                    plain["bf16"] - plain["f32"])[:, :cfg.vocab_size] \
+                    .abs().max().item()
+                tol16 = max(0.1, err["plain_bf16_vs_f32"])
+                log(f"  limits: bf16 {tol16:.3g} (the plain lane's bf16 "
+                    f"logits against its float32 ones: "
+                    f"{err['plain_bf16_vs_f32']:.3g}), float32 1e-3")
+                check(err["bf16"] <= tol16, f"bf16 prefill logits differ "
+                      f"by {err['bf16']:.3g} > {tol16:.3g}")
+                check(err["f32"] <= 1e-3, f"f32 prefill logits differ by "
+                      f"{err['f32']:.3g} > 1e-3")
+                # prefill against the decode path, float32
+                c32 = cfg.replace(dtype="float32")
+                prompt = torch.from_numpy(out["prompts"][:2, :32]).to(dev)
+                pb = {"tokens": prompt}
+                if audio:
+                    pb["frontend"] = synthetic_frontend(c32, 2, 1, device=dev)
+                full, rk = lane(lambda: make_prefill_step(c32)(params, pb),
+                                moe_on)
+                L = cfg.num_layers
+                rec = Routes(lambda n, x: rk.idx[n % L][:, n // L:n // L + 1]
+                             ) if moe_on else None
+                with (routes(rec) if moe_on else contextlib.nullcontext()):
+                    if audio:
+                        cache = api.init_cache(c32, 2, 64, device=dev)
+                        with torch.no_grad():
+                            cache["enc"].copy_(encdec.encode(
+                                params, pb["frontend"], c32))
+                        for t in range(prompt.shape[1]):
+                            step, cache = api.decode_step(
+                                params, prompt[:, t:t + 1], cache, c32)
+                        del cache
+                    else:
+                        step, _ = ServeEngine(c32, params, batch=2,
+                                              max_len=64).prefill(
+                                                  prompt.cpu().numpy())
+                # the decode caches are bf16 (K/V, conv windows, enc); the
+                # reference's own bounds for decode against forward:
+                # 2e-2 dense, 3e-2 hybrid (tests/test_arch_smoke.py)
+                tol = 3e-2 if cfg.family == "hybrid" else 2e-2
+                err["decode"] = (full - step[:, 0]).abs().max().item()
+                check(err["decode"] <= tol, f"prefill and decode logits "
+                      f"differ by {err['decode']:.3g} > {tol}")
+                gen, done = out["generate"], out["cb"]
+                check(gen.shape == (n_prompts, n_new) and gen.min() >= 0
+                      and gen.max() < cfg.vocab_size, f"generate gave "
+                      f"{gen.shape}, ids {gen.min()}..{gen.max()}")
+                check(len(done) == n_req and
+                      all(len(t) == r_new for _, t in done) and
+                      {s for s, _ in done} == set(range(slots)),
+                      f"continuous batching finished {len(done)} of "
+                      f"{n_req}, slots {[s for s, _ in done]}")
+                log(f"  prefill vs decode (float32, 2 x 32"
+                    f"{', enc = encode(frames) in bf16' if audio else ''}"
+                    f"{', the prefill experts replayed' if moe_on else ''}"
+                    f"): max abs diff {err['decode']:.3g} (limit {tol}, "
+                    f"max |logit| "
+                    f"{full[:, :cfg.vocab_size].abs().max().item():.3g}); "
+                    f"generate "
+                    f"{gen.shape}; continuous batching {len(done)} "
+                    f"requests, slots {[s for s, _ in done]}"
+                    + ("; the engines decode against zero enc" if audio
+                       else ""))
+                fam["errors"][name] = err
+                del full, step
+
+            with phase(f"22 ({tag}) {name}: timings"):
+                prefill = make_prefill_step(cfg)
+                pf_ms = cuda_time(lambda: prefill(params, batch), 3,
+                                  warm_up=False)
+                steps = p_len + n_new - 1
+                gen_ms = cuda_time(lambda: ServeEngine(
+                    cfg, params, batch=n_prompts, max_len=128).generate(
+                        out["prompts"], n_new), 1, warm_up=False)
+                busy = device_busy(lambda: prefill(params, batch))
+                H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, \
+                    cfg.resolved_head_dim
+                Sa = S + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+                w = cfg.sliding_window
+                q, k, v = attn_inputs(B, Sa, H, Hkv, hd, torch.bfloat16)
+                call = (lambda: fa_kernel.flash_attention_bhsd(
+                    q, k, v, window=w, group_size=H // Hkv))
+                kern = call()
+                want = fa_ref.attention_ref(q, k, v, window=w,
+                                            group_size=H // Hkv)
+                k_err = (kern.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(kern.float(), want.float(),
+                                           rtol=2.0 ** -7, atol=1e-3)
+                lib, args, kw = sdpa_call(q, k, v, B, H, Hkv, w)
+                vs_lib = (kern.float() - lib().float().reshape(
+                    B * H, Sa, hd)).abs().max().item()
+                k_ms = cuda_time(call, 5)
+                p_ms = cuda_time(lambda: fa_ref.attention_ref(
+                    q, k, v, window=w, group_size=H // Hkv), 2)
+                lib_ms = cuda_time(lib, 5)
+                bound_ms, bound_by = attn_bound(B, Sa, H, Hkv, hd,
+                                                torch.bfloat16, window=w)
+                fam["flash"].append({
+                    "shape": f"{name}: B={B} S={Sa} H={H}/{Hkv} hd={hd} "
+                             f"bf16 causal window={w} (group size "
+                             f"{H // Hkv})",
+                    "route": "tensor_core_bf16", "ms": k_ms,
+                    "plain_ms": p_ms, "library_ms": lib_ms,
+                    "library": f"scaled_dot_product_attention(enable_gqa="
+                               f"{kw['enable_gqa']}, "
+                               f"{'bool attn_mask' if w else 'is_causal'}); "
+                               f"backends that take it: {backends(args, kw)}",
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": k_err, "max_abs_vs_library": vs_lib,
+                    "launches": fam["launches"][name],
+                    "tflops": 4 * B * H * hd * kept_pairs(Sa, True, w)
+                    / (k_ms * 1e-3) / 1e12})
+                del q, k, v, kern, want, args, kw, lib
+                log(f"  flash {fam['flash'][-1]} [{card}]")
+                log(f"  prefill step {name} B={B} S={S} bf16: median "
+                    f"{pf_ms:.3f} ms of 3 (first "
+                    f"{1e3 * out['prefill_s']:.3f} ms), peak device memory "
+                    f"{out['prefill_peak'] / 2**30:.3f} GiB [{card}]")
+                log(f"  ServeEngine.generate {n_prompts} x {steps} decode "
+                    f"steps: {gen_ms:.3f} ms, "
+                    f"{n_prompts * steps / (gen_ms / 1e3):.2f} decode "
+                    f"tokens/s; continuous batching {out['cb_s']:.3f} s, "
+                    f"{n_req * r_new / out['cb_s']:.2f} new tokens/s (first "
+                    f"run); peak device memory serving "
+                    f"{out['serve_peak'] / 2**30:.3f} GiB [{card}]")
+                log(f"  device busy, prefill step: {busy} [{card}]")
+            return out
+
+        for tag, name in (("a", "granite-moe-3b-a800m"), ("b", "hymba-1.5b"),
+                          ("c", "internvl2-1b"),
+                          ("d", "seamless-m4t-medium")):
+            family(tag, name)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        with phase("22 (e) training hymba-1.5b at full width, "
+                   "make_train_step (counted)"):
+            hc = get_arch("hymba-1.5b")
+            r = np.random.default_rng(23)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            hp = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 hc, device=dev)
+            ho = init_adamw(hp)
+            sync()
+            s_init = time.perf_counter() - t0
+            step_fn = make_train_step(hc)
+            for lib in _cuda.LIBS:
+                lib.reset_counts()
+            secs, hist = [], []
+            for _ in range(TRAIN22_STEPS):
+                tb = r.integers(0, hc.vocab_size, (1, TRAIN22_SEQ))
+                tbatch = {"tokens": torch.from_numpy(tb).to(dev),
+                          "targets": torch.from_numpy(
+                              np.roll(tb, -1, 1)).to(dev)}
+                t0 = time.perf_counter()
+                hp, ho, m = step_fn(hp, ho, tbatch)
+                sync()
+                secs.append(time.perf_counter() - t0)
+                hist.append({k: float(v) for k, v in m.items()})
+            peak = torch.cuda.max_memory_allocated()
+            h_train = {lib.name: lib.launches for lib in _cuda.LIBS}
+            fam["train_launches"] = h_train
+            check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                      for h in hist), f"not finite: {hist}")
+            ln_v = float(np.log(hc.vocab_size))
+            check(abs(hist[0]["loss"] - ln_v) < 0.5, f"step 0's loss "
+                  f"{hist[0]['loss']:.4f} is not within 0.5 of ln(vocab) "
+                  f"{ln_v:.4f}")
+            check(all(n == 0 for n in h_train.values()),
+                  f"a kernel of ours launched in the train steps: {h_train}")
+            fam["train_hymba"] = {"step_s": secs, "peak_gib": peak / 2**30}
+            log(f"  {sum(p.numel() for p in hp.parameters())} parameters "
+                f"(init + AdamW state {s_init:.2f} s); B 1 x S "
+                f"{TRAIN22_SEQ}, remat {hc.remat}, SSD chunk "
+                f"{hc.ssm.chunk}: losses "
+                f"{[round(h['loss'], 4) for h in hist]} (ln vocab "
+                f"{ln_v:.4f}), grad norms "
+                f"{[round(h['grad_norm'], 4) for h in hist]}; launches "
+                f"{h_train}; step wall time {[round(s, 3) for s in secs]} s "
+                f"({TRAIN22_SEQ / secs[-1]:.1f} tokens/s); peak device "
+                f"memory {peak / 2**30:.3f} GiB [{card}]")
+        hp = ho = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        return fam
+
     # ---------------------------------------------------------------- 2
     with phase("2 kernels vs plain versions (synthetic inputs)"):
         # kernel 1: seeded random chains and edges, exported like a real
@@ -1386,6 +1852,12 @@ def main():
          2.0 ** -7, 1e-3),
         ("c f32 ragged", 2, 1000, 6, 2, 32, torch.float32, 0, 0.0,
          2e-5, 2e-5),
+        ("d granite-moe-3b-a800m", 2, 2048, 24, 8, 64, torch.bfloat16, 0,
+         0.0, 2.0 ** -7, 1e-3),
+        ("e hymba-1.5b", 2, 2048, 25, 5, 64, torch.bfloat16, 1024, 0.0,
+         2.0 ** -7, 1e-3),
+        ("f internvl2-1b", 2, 2304, 14, 2, 64, torch.bfloat16, 0, 0.0,
+         2.0 ** -7, 1e-3),
     ]
     flash_err = {}
     with phase("8 flash kernel vs plain version (seeded inputs)"):
@@ -2836,6 +3308,8 @@ def main():
     torch.cuda.empty_cache()
     late = late_phases()
     train_launches = late.get("train_launches", {})
+    fam = family_phases()
+    train_launches["hymba"] = fam.get("train_launches", {})
 
     for k in kernels:
         if k["name"] == "maxplus_sparse_fixpoint":
@@ -2858,6 +3332,9 @@ def main():
                 for run, n in train_launches.items()}
             if "flash_minicpm" in late:
                 k["by_shape"].append(late["flash_minicpm"])
+            k["launches_phase22_prefill"] = fam["launches"]
+            k["by_shape"].extend(fam["flash"])
+            k["phase22_logits_err"] = fam["errors"]
         if k["name"] == "mlstm_chunk":
             k["launches_train_steps"] = {
                 run: n.get("mlstm_chunk")

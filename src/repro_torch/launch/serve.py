@@ -1,14 +1,21 @@
 """Serving launcher: batched generation with the decode engine.
 
-``python -m repro_torch.launch.serve --arch smollm-135m`` (or ``--arch
-xlstm-1.3b``) serves the model at its published widths with seeded random
-weights on the card (the port of the reference's ``repro.launch.serve``,
-with ``--device``): it prefills a batch of random prompts through the
-full-sequence prefill step (on the card, the flash-attention kernel or
-the chunked-mLSTM kernel), then generates greedily with
-``ServeEngine`` and prints tokens per second.  The weights are drawn from
-``--seed`` on the serving device.  ``--smoke`` takes the reduced config;
-``--device cpu`` runs the kernels' plain versions.
+``python -m repro_torch.launch.serve --arch smollm-135m`` (any name of
+``configs.ARCHS``: dense, moe, hybrid, vlm, audio and xlstm) serves the
+model at its published widths with seeded random weights on the card
+(the port of the reference's ``repro.launch.serve``, with ``--device``):
+it prefills a batch of random prompts through the full-sequence prefill
+step (on the card, the flash-attention kernel or the chunked-mLSTM
+kernel), then generates greedily with ``ServeEngine`` and prints tokens
+per second.  The weights are drawn from ``--seed`` on the serving device.
+``--smoke`` takes the reduced config; ``--device cpu`` runs the kernels'
+plain versions.
+
+The prefill of a vlm or audio config takes seeded stand-in frontend
+embeddings (``models.frontends.synthetic_frontend``: internvl2's patches,
+seamless's frames).  The engine, as the reference's launcher runs it,
+gets no frontend: it serves text only, and the encoder-decoder decodes
+against its cache's zeroed encoder states.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 from ..configs import get_arch
 from ..kernels._cuda import resolve_device
 from ..models import api
+from ..models.frontends import synthetic_frontend
 from ..serve.engine import ServeEngine
 from ..train.step import make_prefill_step
 
@@ -53,9 +61,12 @@ def main(argv=None) -> None:
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len))
 
+    batch = {"tokens": torch.from_numpy(prompts).to(device)}
+    frontend = synthetic_frontend(cfg, args.batch, args.seed, device=device)
+    if frontend is not None:
+        batch["frontend"] = frontend
     t0 = time.time()
-    last = make_prefill_step(cfg)(params, {
-        "tokens": torch.from_numpy(prompts).to(device)})
+    last = make_prefill_step(cfg)(params, batch)
     _sync(device)
     print(f"prefill {args.batch}x{args.prompt_len} tokens in "
           f"{time.time() - t0:.2f}s; last-position logits "

@@ -4,18 +4,23 @@ across as numpy, both ways.
 ``params_from_jax`` takes the reference's parameter tree as nested dicts of
 numpy arrays (what ``jax.tree.map(np.asarray, params)`` gives; the caller
 makes it, the port never imports JAX) and fills the port's modules,
-unstacking the reference's layer stacks: ``[L, ...]`` for the dense
-family; for ssm, ``mlstm`` leaves and ``ln_m`` ``[G, M, ...]``, ``slstm``
-leaves and ``ln_s`` ``[G, ...]``.  ``cache_from_jax`` and
-``cache_to_numpy`` carry the decode cache both ways, nested dicts
-included, so a test can compare the two decode paths step by step; an
-int8 cache's int8 K/V and bf16 scales cross unchanged (the scales come
-out of the port as float32, exactly).
+unstacking the reference's layer stacks: ``layers`` ``[L, ...]`` (an MoE
+layer's stacked experts ``moe.w_gate`` [L, E, d, f] stay whole per layer;
+``ssm.*`` likewise); for ssm (xlstm), ``mlstm`` leaves and ``ln_m``
+``[G, M, ...]``, ``slstm`` leaves and ``ln_s`` ``[G, ...]``; for the
+encoder-decoder (``family="audio"``, an ``encdec.EncDec``),
+``enc_layers`` and ``dec_layers`` (``xattn`` included) ``[L, ...]``.
+``cache_from_jax`` and ``cache_to_numpy`` carry the decode cache both
+ways, nested dicts included, so a test can compare the two decode paths
+step by step; an int8 cache's int8 K/V and bf16 scales cross unchanged
+(the scales come out of the port as float32, exactly), as do the hybrid
+cache's nested ``ssm.{state, conv}`` and the encoder-decoder's ``enc``.
 
 ``params_to_numpy`` is the inverse of ``params_from_jax``: the port's
-per-layer tensors (an ``LM``, or any mapping by parameter name, such as
-its grads or AdamW moments) stacked back into the reference's tree, so a
-test compares grads and updated parameters leaf by leaf.
+per-layer tensors (an ``LM`` or ``EncDec``, or any mapping by parameter
+name, such as its grads or AdamW moments) stacked back into the
+reference's tree, so a test compares grads and updated parameters leaf by
+leaf.
 ``adamw_from_jax`` and ``adamw_to_numpy`` carry the AdamW state.
 """
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels._cuda import resolve_device
 from ..optim.adamw import AdamWState
+from .encdec import EncDec
 from .lm import LM, xlstm_groups
 
 
@@ -55,14 +61,20 @@ def _fill(module: torch.nn.Module, tree: Dict[str, Any], index) -> None:
 
 
 @torch.no_grad()
-def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device="cuda"
-                    ) -> LM:
+def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig, device="cuda"):
+    """An ``LM``, or an ``EncDec`` for ``family="audio"``."""
     device = resolve_device(device)
-    p = LM(cfg, device=device)
+    p = (EncDec if cfg.family == "audio" else LM)(cfg, device=device)
     p.embed.copy_(to_tensor(tree["embed"]))
     p.final_norm.copy_(to_tensor(tree["final_norm"]))
     if not cfg.tie_embeddings:
         p.lm_head.copy_(to_tensor(tree["lm_head"]))
+    if cfg.family == "audio":
+        p.enc_norm.copy_(to_tensor(tree["enc_norm"]))
+        for name in ("enc_layers", "dec_layers"):
+            for i, blk in enumerate(getattr(p, name)):
+                _fill(blk, tree[name], i)
+        return p
     if cfg.family == "ssm":
         for g, grp in enumerate(p.groups):
             for m, blk in enumerate(grp.mlstm):
@@ -108,8 +120,11 @@ def reference_leaf(name: str) -> str:
     """The dotted path of the reference's stacked leaf that holds the
     port's parameter ``name``: ``layers.3.attn.wq`` -> ``layers.attn.wq``;
     ``groups.1.mlstm.4.w_in`` -> ``mlstm.w_in``; ``groups.1.ln_m`` ->
-    ``ln_m``; ``groups.1.slstm.w_out`` -> ``slstm.w_out``."""
+    ``ln_m``; ``groups.1.slstm.w_out`` -> ``slstm.w_out``;
+    ``dec_layers.2.xattn.wq`` -> ``dec_layers.xattn.wq``."""
     for pattern, prefix in ((r"layers\.\d+\.(.+)", "layers."),
+                            (r"enc_layers\.\d+\.(.+)", "enc_layers."),
+                            (r"dec_layers\.\d+\.(.+)", "dec_layers."),
                             (r"groups\.\d+\.mlstm\.\d+\.(.+)", "mlstm."),
                             (r"groups\.\d+\.(.+)", "")):
         m = re.fullmatch(pattern, name)
@@ -129,7 +144,8 @@ def by_reference_leaf(names) -> Dict[str, List[str]]:
 
 def params_to_numpy(params, cfg: ArchConfig) -> Dict[str, Any]:
     """The reference's parameter tree as numpy (bfloat16 as float32):
-    ``layers`` leaves stacked [L, ...] for the dense family; for ssm,
+    ``layers`` (or ``enc_layers``, ``dec_layers``) leaves stacked
+    [L, ...]; for ssm,
     ``mlstm`` leaves and ``ln_m`` [G, M, ...], ``slstm`` leaves and
     ``ln_s`` [G, ...]."""
     flat = {n: _numpy(t) for n, t in (params.named_parameters()

@@ -1,18 +1,29 @@
-"""Language-model assembly, dense and ssm (xlstm) families.
+"""Language-model assembly for every family but the encoder-decoder.
 
-The port of the reference's ``repro.models.lm`` for ``family="dense"``:
-token embedding (times ``cfg.embed_scale``, gemma's ``sqrt(d_model)``),
-a plain loop over the blocks of an
-``nn.ModuleList`` (pre-norm GQA attention and gated MLP, gemma2's post
-norms), the final norm, the tied or separate head, the logit softcap and
-the masked vocab padding.  Per-layer sliding windows are Python ints.
+The port of the reference's ``repro.models.lm``: token embedding (times
+``cfg.embed_scale``, gemma's ``sqrt(d_model)``), a plain loop over the
+blocks of an ``nn.ModuleList``, the final norm, the tied or separate
+head, the logit softcap and the masked vocab padding.  Per-layer sliding
+windows are Python ints.  Families:
 
-And for ``family="ssm"`` (xlstm): G = num_layers / slstm_every
-supergroups, each M = slstm_every - 1 pre-norm mLSTM blocks then one
-pre-norm sLSTM block, with no FFN (the reference's ``_xlstm_group``).  Its
-decode cache is nested, as the reference's: ``mlstm.{state, conv}``
-stacked [G, M, ...], ``slstm.{h, c, n}`` stacked [G, ...], and ``pos``;
-decode updates it in place.
+  dense / vlm  pre-norm GQA attention and gated MLP (gemma2's post
+               norms); vlm prepends the frontend's patch embeddings to
+               the token stream and takes its loss on the text only
+  moe          GQA attention and the top-k MoE FFN (``moe.moe_dense``:
+               the reference's path with no mesh)
+  hybrid       hymba: attention and the SSM block in parallel on the same
+               normed input, ``a = 0.5 * (attn + ssm)``, then a gated MLP
+  ssm          xlstm: G = num_layers / slstm_every supergroups, each
+               M = slstm_every - 1 pre-norm mLSTM blocks then one pre-norm
+               sLSTM block, with no FFN (the reference's ``_xlstm_group``)
+
+The encoder-decoder (``family="audio"``) is ``models.encdec``;
+``models.api`` dispatches to it.
+
+Decode caches: K/V per layer (bf16, or int8 under ``cfg.kv_quant``) and
+``pos``; hybrid adds ``ssm.{state, conv}``; xlstm's is nested
+(``mlstm.{state, conv}`` stacked [G, M, ...], ``slstm.{h, c, n}`` stacked
+[G, ...], ``pos``).  Decode updates the cache in place.
 
 Two lanes run the full sequence.  Serving (:func:`forward`, under
 ``torch.no_grad()``) takes the kernel lane: the hand-written flash and
@@ -20,12 +31,13 @@ chunked-mLSTM kernels.  Training (:func:`loss_fn`) takes the train lane:
 the reference's XLA paths (``use_pallas=False``, its default) in plain
 torch under autograd, each layer checkpointed under ``cfg.remat`` with
 ``torch.utils.checkpoint``, and the head fused with the cross-entropy in
-checkpointed chunks for long sequences.  Decode keeps a bf16 or an int8
-(``cfg.kv_quant``) K/V cache.
+checkpointed chunks for long sequences.  The SSM scan, the MoE and the
+sLSTM are plain torch on both lanes (the reference has no Pallas kernel
+for them).
 
 The reference's ``jax.lax.scan`` over stacked layers and its sharding
 constraints have no counterpart here: the port runs eagerly on one
-device.  Families other than dense and ssm raise ``NotImplementedError``.
+device.  An unknown family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,41 +54,41 @@ from .attention import (LANES, Attention, attention, decode_attention,
 from .common import (dense_init, dtype_of, embed_init, mask_vocab_pad,
                      padded_vocab, rms_norm, scalar_in, softcap, weight)
 from .mlp import MLP, mlp
+from .moe import MoE, moe_dense
+from .ssm import SSM, init_ssm_cache, ssm_decode_step, ssm_forward
 from .xlstm import (MLSTM, SLSTM, init_mlstm_cache, init_slstm_cache,
                     mlstm_decode_step, mlstm_forward, slstm_decode_step,
                     slstm_forward)
 
-PORTED = ("dense", "ssm")
-
-# where each family not ported yet stands in ROADMAP queue 1 item 10
-_NOT_PORTED = {
-    "moe": "moe (models/moe.py)",
-    "hybrid": "hybrid (models/ssm.py)",
-    "vlm": "vlm (models/frontends.py)",
-    "audio": "encdec (models/encdec.py)",
-    "encdec": "encdec (models/encdec.py)",
-}
+# the families this module builds; "audio" is the encoder-decoder
+FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED:
-        what = _NOT_PORTED.get(cfg.family, cfg.family)
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"has the dense and ssm families (ROADMAP queue 1 item 10: "
-            f"{what})")
+            f"{cfg.name}: family {cfg.family!r} is not a decoder-only "
+            f"family of the port ({', '.join(FAMILIES)}); the "
+            f"encoder-decoder is family 'audio' (models.encdec, through "
+            f"models.api)")
 
 
 class Block(nn.Module):
-    """One pre-norm block: attention and gated MLP, with gemma2's post
-    norms when ``cfg.post_norms``."""
+    """One pre-norm block: attention, and the MoE for the moe family or
+    else a gated MLP; hybrid adds the SSM block beside the attention;
+    gemma2's post norms when ``cfg.post_norms``."""
 
     def __init__(self, cfg: ArchConfig, *, device=None):
         super().__init__()
         self.ln1 = weight((cfg.d_model,), device)
         self.attn = Attention(cfg, device=device)
         self.ln2 = weight((cfg.d_model,), device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device)
+        if cfg.family == "hybrid":
+            self.ssm = SSM(cfg.d_model, cfg.ssm, device=device)
         if cfg.post_norms:
             self.pn1 = weight((cfg.d_model,), device)
             self.pn2 = weight((cfg.d_model,), device)
@@ -87,7 +99,9 @@ class Block(nn.Module):
             if hasattr(self, name):
                 getattr(self, name).zero_()
         self.attn.reset_parameters(gen)
-        self.mlp.reset_parameters(gen)
+        for name in ("moe", "mlp", "ssm"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters(gen)
         return self
 
 
@@ -121,8 +135,8 @@ class XLSTMGroup(nn.Module):
 
 
 class LM(nn.Module):
-    """The parameters of an LM (f32, ``param_dtype``): ``layers`` for the
-    dense family, ``groups`` of :class:`XLSTMGroup` for ssm."""
+    """The parameters of an LM (f32, ``param_dtype``): ``layers`` of
+    :class:`Block`, or ``groups`` of :class:`XLSTMGroup` for ssm."""
 
     def __init__(self, cfg: ArchConfig, *, device=None):
         super().__init__()
@@ -179,17 +193,22 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"
 
 # -------------------------------------------------------------- block bodies
 def _block(p: Block, x: torch.Tensor, cfg: ArchConfig,
-           attend: Callable[[Attention, torch.Tensor], torch.Tensor]
+           attend: Callable[[Attention, torch.Tensor], torch.Tensor],
+           mix: Optional[Callable[[SSM, torch.Tensor], torch.Tensor]] = None
            ) -> torch.Tensor:
     """One block; ``attend(p.attn, h)`` is full-sequence attention in the
-    forward and one-token attention over the cache in decode."""
+    forward and one-token attention over the cache in decode, and
+    ``mix(p.ssm, h)`` the hybrid family's SSM block, likewise."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     a = attend(p.attn, h)
+    if cfg.family == "hybrid":
+        a = 0.5 * (a + mix(p.ssm, h))    # hymba: parallel attn+SSM fusion
     if cfg.post_norms:
         a = rms_norm(a, p.pn1, cfg.norm_eps)
     x = x + a
     h = rms_norm(x, p.ln2, cfg.norm_eps)
-    f = mlp(p.mlp, h)
+    # the reference's ``moe`` with no mesh, in the forward and in decode
+    f = moe_dense(p.moe, h, cfg) if cfg.family == "moe" else mlp(p.mlp, h)
     if cfg.post_norms:
         f = rms_norm(f, p.pn2, cfg.norm_eps)
     return x + f
@@ -217,7 +236,8 @@ def _remat(fn: Callable, *args, on: bool):
 def _dense_layer(blk: Block, x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor, w: int, lane: str) -> torch.Tensor:
     return _block(blk, x, cfg, lambda pa, h: attention(
-        pa, h, cfg, positions, window=w, lane=lane))
+        pa, h, cfg, positions, window=w, lane=lane),
+        lambda ps, h: ssm_forward(ps, h, cfg))
 
 
 def _mlstm_layer(blk: MLSTM, ln: torch.Tensor, x: torch.Tensor,
@@ -235,8 +255,10 @@ def hidden_forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
                    frontend: Optional[torch.Tensor] = None, *,
                    lane: str = "kernel") -> torch.Tensor:
     """tokens: [B, S] int.  Returns final hidden states [B, S, D] (after
-    the final norm).  ``frontend`` embeddings belong to the vlm family;
-    the dense family ignores them, as the reference does.
+    the final norm).  ``frontend`` [B, F, D] (the vlm family's patch
+    embeddings) is cast to the compute dtype and prepended to the token
+    embeddings, so S counts its F positions; the other families ignore
+    it, as the reference does.
 
     ``lane="kernel"`` (serving) runs attention and the mLSTM through the
     hand-written kernels, which have no backward and raise on inputs that
@@ -248,6 +270,8 @@ def hidden_forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
         raise ValueError(f"lane must be one of {LANES}, got {lane!r}")
     remat = lane == "train" and cfg.remat
     x = _embed(params, tokens, cfg)
+    if cfg.family == "vlm" and frontend is not None:
+        x = torch.cat([frontend.to(x.dtype), x], dim=1)
     if cfg.family == "ssm":
         for grp in params.groups:
             for blk, ln in zip(grp.mlstm, grp.ln_m):
@@ -330,8 +354,12 @@ def loss_fn(params: LM, tokens: torch.Tensor, targets: torch.Tensor,
     """Next-token cross-entropy averaged over target tokens (a 0-dim f32
     tensor), through the training lane of :func:`hidden_forward`.  The
     head and CE are chunked (:func:`chunked_head_ce`) when S is a multiple
-    of :data:`CE_CHUNK` above it, as in the reference."""
+    of :data:`CE_CHUNK` above it, as in the reference.  For vlm the
+    frontend positions are dropped before the head: the loss is on the
+    text only."""
     x = hidden_forward(params, tokens, cfg, frontend, lane="train")
+    if frontend is not None and cfg.family == "vlm":
+        x = x[:, frontend.shape[1]:, :]               # loss on text only
     S = x.shape[1]
     if S % CE_CHUNK == 0 and S > CE_CHUNK and not cfg.cost_analysis_mode:
         return chunked_head_ce(x, _head(params, cfg, x.dtype), targets,
@@ -346,7 +374,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"
     :func:`init_params`).  Dense: bf16 ``k``, ``v`` [L, B, max_len, Hkv,
     hd] and the int32 per-sequence position ``pos`` [B]; under
     ``cfg.kv_quant`` int8 ``k``, ``v`` with bf16 ``k_scale``, ``v_scale``
-    [L, B, max_len, Hkv].  Ssm: the
+    [L, B, max_len, Hkv].  Hybrid adds ``ssm.state`` f32 [L, B, N, H,
+    P] and ``ssm.conv`` bf16 [L, B, K-1, d_inner].  Ssm: the
     recurrent states (``max_len`` unused) ``mlstm.state`` f32 [G, M, B, H,
     P, P+1], ``mlstm.conv`` bf16 [G, M, B, K-1, d_inner], ``slstm.{h, c,
     n}`` f32 [G, B, H, d/H], and ``pos``."""
@@ -359,14 +388,41 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"
                           for name, a in m.items()},
                 "slstm": init_slstm_cache(cfg, batch, G, device=device),
                 "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
-    return init_kv_cache(cfg, batch, max_len, cfg.num_layers, device=device)
+    cache = init_kv_cache(cfg, batch, max_len, cfg.num_layers,
+                          device=device)
+    if cfg.family == "hybrid":
+        cache["ssm"] = init_ssm_cache(cfg, batch, cfg.num_layers,
+                                      device=device)
+    return cache
+
+
+def _decode_attend(cache: Dict[str, Any], i: int, w: int,
+                   pos: torch.Tensor, cfg: ArchConfig) -> Callable:
+    """Layer i's one-token attention over its K/V rows (int8 under
+    ``cfg.kv_quant``), written in place."""
+    if cfg.kv_quant:
+        return lambda pa, h: decode_attention_quant(
+            pa, h, cfg, cache["k"][i], cache["v"][i], cache["k_scale"][i],
+            cache["v_scale"][i], pos, window=w)[0]
+    return lambda pa, h: decode_attention(
+        pa, h, cfg, cache["k"][i], cache["v"][i], pos, window=w)[0]
+
+
+def _decode_mix(cache: Dict[str, Any], i: int, cfg: ArchConfig
+                ) -> Optional[Callable]:
+    """Layer i's hybrid SSM step on its state and conv window, in place
+    (``None`` for the other families)."""
+    if cfg.family != "hybrid":
+        return None
+    st, cv = cache["ssm"]["state"][i], cache["ssm"]["conv"][i]
+    return lambda ps, h: ssm_decode_step(ps, h, cfg, st, cv)[0]
 
 
 @torch.no_grad()
 def decode_step(params: LM, tokens: torch.Tensor,
                 cache: Dict[str, Any], cfg: ArchConfig):
     """One decode step.  tokens: [B, 1] int.  Returns (logits [B, 1, Vp],
-    cache); the cache's K/V rows or recurrent states and ``pos`` are
+    cache); the cache's K/V rows, recurrent states and ``pos`` are
     updated in place (the reference donates its cache buffers), so the
     returned dict is the one passed in."""
     x = _embed(params, tokens, cfg)
@@ -383,15 +439,10 @@ def decode_step(params: LM, tokens: torch.Tensor,
                 grp.slstm, rms_norm(x, grp.ln_s, cfg.norm_eps), cfg,
                 sc["h"][g], sc["c"][g], sc["n"][g])
             x = x + y
-    elif cfg.kv_quant:
-        for i, (blk, w) in enumerate(zip(params.layers, layer_windows(cfg))):
-            x = _block(blk, x, cfg, lambda pa, h: decode_attention_quant(
-                pa, h, cfg, cache["k"][i], cache["v"][i],
-                cache["k_scale"][i], cache["v_scale"][i], pos, window=w)[0])
     else:
         for i, (blk, w) in enumerate(zip(params.layers, layer_windows(cfg))):
-            x = _block(blk, x, cfg, lambda pa, h: decode_attention(
-                pa, h, cfg, cache["k"][i], cache["v"][i], pos, window=w)[0])
+            x = _block(blk, x, cfg, _decode_attend(cache, i, w, pos, cfg),
+                       _decode_mix(cache, i, cfg))
     cache["pos"] = pos + 1
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, x, cfg), cache

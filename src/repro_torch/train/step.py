@@ -13,14 +13,20 @@ the AdamW moments in place, leaf by leaf (``optim.adamw.adamw_update_``),
 as the reference's launcher donates both.
 
 ``make_prefill_step`` runs the whole prompt through the full-sequence
-forward (on the card: the flash-attention kernel for the dense family,
-the chunked-mLSTM kernel once per mLSTM block for xlstm) and returns the
-last position's logits; ``make_decode_step`` takes one greedy token.
+forward (on the card: the flash-attention kernel once per attention
+layer, decoder layers for the encoder-decoder; the chunked-mLSTM kernel
+once per mLSTM block for xlstm) and returns the last position's logits;
+``make_decode_step`` takes one greedy token.
+
+A batch's ``frontend`` (the vlm family's patch embeddings, the audio
+family's frames) may come as numpy, as ``data.pipeline`` makes it: both
+steps move it to the parameters' device as a tensor.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
@@ -51,6 +57,18 @@ def lr_for(cfg: ArchConfig, step, total_steps: int = 10_000,
                            total_steps=total_steps)
 
 
+def _frontend(batch: Dict[str, Any], device: torch.device
+              ) -> Optional[torch.Tensor]:
+    """``batch["frontend"]`` (numpy or a tensor) as a tensor on
+    ``device``, or ``None``."""
+    fe = batch.get("frontend")
+    if fe is None:
+        return None
+    if isinstance(fe, np.ndarray):
+        fe = torch.from_numpy(fe)
+    return fe.to(device)
+
+
 def _compress_roundtrip(grads: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
     """Error-feedback int8 within the step (residual from zero), as the
@@ -71,9 +89,10 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 10_000,
                     cast_bf16: bool = True,
                     grad_compression: bool = False) -> Callable:
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
-        """params: an ``lm.LM`` and opt_state its AdamW state (both
-        updated in place; returned); batch:
-        ``tokens`` and ``targets`` [B, S] integer tensors on its device.
+        """params: an ``lm.LM`` or ``encdec.EncDec`` and opt_state its
+        AdamW state (both updated in place; returned); batch: ``tokens``
+        and ``targets`` [B, S] integer tensors on its device, and
+        ``frontend`` [B, F, d] for vlm and audio.
         Returns (params, opt_state, metrics) with 0-dim tensors ``loss``,
         ``grad_norm`` and ``lr``."""
         named = dict(params.named_parameters())
@@ -83,7 +102,7 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 10_000,
             p = cast_params(params, torch.bfloat16) if cast_bf16 \
                 else params
             loss_val = api.loss_fn(p, batch["tokens"], batch["targets"],
-                                   cfg, batch.get("frontend"))
+                                   cfg, _frontend(batch, params.device))
             grads = dict(zip(named, torch.autograd.grad(
                 loss_val, list(named.values()))))
             del p
@@ -102,7 +121,7 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 10_000,
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params, batch: Dict[str, Any]) -> torch.Tensor:
         logits = api.forward(params, batch["tokens"], cfg,
-                             batch.get("frontend"))
+                             _frontend(batch, params.device))
         # serving returns only the last position's logits
         return logits[:, -1, :]
 

@@ -684,3 +684,79 @@ def test_int8_decode_on_the_card_matches_the_cpu(dev):
             logits[d.type].append(lg.cpu())
     for a, b in zip(logits["cuda"], logits["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ------------------------------------------- moe, hybrid, vlm, encdec
+@pytest.mark.parametrize("H,Hkv,S,window", [
+    (24, 8, 2048, 0),            # granite-moe-3b-a800m, group size 3
+    (25, 5, 2048, 1024),         # hymba-1.5b, group size 5, windowed
+    (14, 2, 2304, 0),            # internvl2-1b, 256 patches + 2048 tokens
+    (16, 16, 2048, 0),           # seamless-m4t-medium's decoder
+])
+def test_flash_kernel_at_the_new_families_shapes(dev, H, Hkv, S, window):
+    """The group sizes 3, 5 and 7 and the 1024 window at hd 64, bf16, on
+    the tensor-core route; the tolerance of chip_smoke.py phase 8."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 1, S, H, Hkv, 64, seed=H)
+    routes = dict(_cuda.FLASH.route_launches)
+    got = fk.flash_attention_bhsd(q, k, v, window=window, group_size=H // Hkv)
+    torch.cuda.synchronize()
+    assert _cuda.FLASH.route_launches["tensor_core_bf16"] == \
+        routes["tensor_core_bf16"] + 1
+    want = fr.attention_ref(q, k, v, window=window, group_size=H // Hkv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("granite-moe-3b-a800m", {}), ("qwen3-moe-30b-a3b", {}),
+    ("hymba-1.5b", dict(sliding_window=8)), ("internvl2-1b", {}),
+    ("seamless-m4t-medium", {})])
+def test_new_families_on_the_card_match_the_cpu(dev, name, kw):
+    """Smoke config, f32 (TF32 off), the same weights on the card and on
+    the CPU: the prefill step (the flash kernel once per decoder layer,
+    f32 route) within 1e-4; four decode steps within 1e-3 (bf16 caches
+    round alike up to ties); one ``make_train_step`` (numpy frontend for
+    vlm and audio) with no kernel of ours, loss and grad norm within
+    1e-4."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train.step import make_prefill_step, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(name).smoke().replace(**kw)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 32))
+    fe = (rng.standard_normal((2, cfg.frontend_tokens, cfg.d_model))
+          * 0.02).astype(np.float32) if cfg.frontend_tokens else None
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        params = api.init_params(0, cfg, device=d)
+        batch = {"tokens": torch.from_numpy(toks).to(d)}
+        if fe is not None:
+            batch["frontend"] = fe
+        before = _cuda.FLASH.launches
+        pre = make_prefill_step(cfg)(params, batch).cpu()
+        launched = _cuda.FLASH.launches - before
+        cache = api.init_cache(cfg, 2, 8, device=d)
+        steps = []
+        for t in range(4):
+            lg, cache = api.decode_step(params, batch["tokens"][:, t:t + 1],
+                                        cache, cfg)
+            steps.append(lg.cpu())
+        opt = init_adamw(params)
+        opt = opt._replace(step=opt.step + 150)
+        batch["targets"] = torch.from_numpy(np.roll(toks, -1, 1)).to(d)
+        before = _cuda.FLASH.launches
+        _, _, m = make_train_step(cfg, cast_bf16=False)(params, opt, batch)
+        assert _cuda.FLASH.launches == before
+        out[d.type] = (pre, launched, steps, m)
+    (pg, ng, sg, mg), (pc, _, sc, mc) = out["cuda"], out["cpu"]
+    assert ng == cfg.num_layers
+    torch.testing.assert_close(pg, pc, rtol=1e-4, atol=1e-4)
+    for a, b in zip(sg, sc):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-4,
+                                   atol=0)
