@@ -268,7 +268,40 @@ Phases, each printing its own line:
      with the SDPA backends that take it) and its bound.  (e) two
      ``make_train_step`` steps of hymba-1.5b at B 1 x S 2048 (remat):
      finite losses and grad norms, no kernel launched, step time, peak
-     memory.
+     memory;
+  23. expert parallelism on the card: an NCCL process group of world size
+     1 (a TCP store on a free localhost port, set up and torn down in the
+     phase) and the launcher's host mesh (1, 1) ``("data", "model")``.
+     qwen3-moe-30b-a3b at its published widths (d_model 2048, 32/4 heads,
+     hd 128, 128 experts, top-8, d_expert 768, vocab 151 936), its depth
+     cut to fit one card (below): (a) the prefill step (B 2 x S 2048,
+     bf16) with the mesh active (``moe_ep`` at capacity 1.25, over
+     NCCL's all-to-all) and with none (``moe_dense``): launch counts are
+     zeroed just before and read just after the ``moe_ep`` run, whose
+     flash kernel must run once per layer, at group size 8 and hd 128, on
+     the tensor-core route; wall times, busy shares, peak memory and the
+     share of top-k choices dropped; for each layer, the choices dropped,
+     the experts' loads against the capacity, and the share of its MoE
+     input's direction that every token shares (the mean cosine between
+     tokens); on layer 0's and the last layer's inputs at this shape,
+     ``moe_ep`` at capacity 1.25 against ``moe_dense`` with the same keep
+     mask (``keep=``: the choices ``moe_ep`` dropped weigh zero); on
+     layer 0's input from a float32 prefill (B 1 x S 512), ``moe_ep`` at
+     dropless capacity (E_pad / top_k) against ``moe_dense``; both within
+     1e-5 in float32 and within twice the dense lane's own bf16 error in
+     bf16; the flash kernel at this
+     shape beside its plain version, ``scaled_dot_product_attention``
+     (``enable_gqa``) and its bound; (b) ``ServeEngine`` and
+     ``ContinuousBatchingEngine`` at phase 22's sizes, the mesh cleared as
+     the serve launcher clears it (decode is ``moe_dense``): decode
+     tokens/s; (c) two steps of ``launch.train`` (B 1 x S 2048, a
+     checkpoint every step), then, with step 2's checkpoint removed, a run
+     that resumes from step 1: ``moe_ep`` at n = 1, finite losses and
+     grad norms, no kernel of ours in a train step, the resumed run equal
+     to the uninterrupted one; (d) granite-moe-3b-a800m's MoE layer at
+     full width through ``moe_ep`` (n = 1) and ``moe_dense`` on one B 2 x
+     S 2048 bf16 input: CUDA-event times, the choices dropped at 1.25,
+     and dropless agreement as in (a).
      The run's total time is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
@@ -310,6 +343,15 @@ PROMPT10, GEN10, REQ10, REQ_GEN10 = 32, 16, 8, 8
 # batching requests x (prompt + new) over slots; hymba's train steps
 PREFILL22, SERVE22, CB22 = (2, 2048), (4, 64, 16), (6, 16, 8, 4)
 TRAIN22_STEPS, TRAIN22_SEQ = 2, 2048
+# phase 23: qwen3-moe-30b-a3b's depth cut to fit one card's 80 GB: one
+# layer is 0.623e9 f32 parameters (2.49 GB), the embedding and head
+# another 2.49 GB; prefill and serving at 16 of 48 layers (~42 GB of
+# weights); training holds weights, grads and two AdamW moments (16 bytes
+# a parameter, and its checkpoints 12) at 1 layer; B x S of the prefill
+# and of granite's MoE layer; the train steps' S; the float32 agreement's
+# B x S
+QWEN23_LAYERS, TRAIN23_LAYERS = 16, 1
+PREFILL23, TRAIN23_SEQ, AGREE23 = (2, 2048), 2048, (1, 512)
 FAILURES = []
 
 
@@ -1505,6 +1547,478 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         return fam
+
+    # ------------------------------------------------------------ phase 23
+    def ep_phases():
+        """Phase 23: expert parallelism over an NCCL group of world size 1
+        with qwen3-moe-30b-a3b at published widths ((a)-(c)) and
+        granite-moe-3b-a800m's MoE layer ((d)).  Returns what the kernel
+        record takes from them."""
+        import shutil
+        import tempfile
+
+        import torch.distributed as dist
+
+        from repro_torch.distrib.sharding import mesh_axes, set_active_mesh
+        from repro_torch.launch import train as train_launcher
+        from repro_torch.launch.mesh import init_process_group, make_host_mesh
+        from repro_torch.models import moe as moe_mod
+
+        ep = {}
+        B, S = PREFILL23
+        n_prompts, p_len, n_new = SERVE22
+        n_req, r_len, r_new, slots = CB22
+        bf16 = torch.bfloat16
+
+        def meshed(m, fn):
+            set_active_mesh(m)
+            try:
+                return fn()
+            finally:
+                set_active_mesh(None)
+
+        def agree(layer, x, cfg, mesh, cf=None):
+            """moe_ep at capacity ``cf`` (default dropless: E_pad / top_k)
+            against moe_dense with moe_ep's keep mask, on one input in
+            float32 (a bf16 ``x`` widened) and in bf16: (f32 max abs diff,
+            its limit, bf16 max abs diff, its limit, share dropped)."""
+            E, K = layer.router.shape[-1], cfg.moe.top_k
+            cf = E / K if cf is None else cf
+            x32, x16 = x.float(), x.to(bf16)
+            with torch.no_grad():
+                with moe_mod.count_drops() as d:
+                    e32 = moe_mod.moe_ep(layer, x32, cfg, mesh,
+                                         capacity_factor=cf)
+                    e16 = moe_mod.moe_ep(layer, x16, cfg, mesh,
+                                         capacity_factor=cf)
+                k32, k16 = d["keep"]
+                d32 = moe_mod.moe_dense(layer, x32, cfg, keep=k32.to(dev))
+                d16 = moe_mod.moe_dense(layer, x16, cfg, keep=k16.to(dev))
+            if cf * K >= E:
+                check(d["dropped"] == 0, f"{d['dropped']} choices dropped "
+                      f"at capacity {cf}")
+            err32 = (e32 - d32).abs().max().item()
+            lim32 = 1e-5 * max(1.0, d32.abs().max().item())
+            own = (d16.float() - d32).abs().max().item()
+            err16 = (e16.float() - d16.float()).abs().max().item()
+            check(err32 <= lim32, f"float32: moe_ep and moe_dense differ "
+                  f"by {err32:.3g} > {lim32:.3g}")
+            check(err16 <= 2 * own, f"bf16: moe_ep and moe_dense differ "
+                  f"by {err16:.3g} > twice the dense lane's own bf16 error "
+                  f"{own:.3g}")
+            return err32, lim32, err16, 2 * own, d["dropped"] / d["choices"]
+
+        def shared_direction(h):
+            """|mean over a sequence's tokens of h / |h||^2, averaged over
+            the sequences: the mean cosine between two tokens' MoE inputs
+            in one sequence (1/S for orthogonal tokens, 1 when they all
+            point one way)."""
+            u = torch.nn.functional.normalize(h.float(), dim=-1)
+            return float(u.mean(1).square().sum(-1).mean())
+
+        with phase("23 setup: NCCL process group of world size 1, the "
+                   "host mesh"):
+            t0 = time.perf_counter()
+            check(init_process_group(dev), "a process group was running")
+            check(dist.get_backend() == "nccl" and
+                  dist.get_world_size() == 1,
+                  f"backend {dist.get_backend()}, world "
+                  f"{dist.get_world_size()}")
+            mesh = make_host_mesh()
+            check(mesh_axes(mesh) == {"data": 1, "model": 1},
+                  f"mesh {mesh_axes(mesh)}")
+            log(f"  {mesh} ({time.perf_counter() - t0:.2f} s)")
+        if not dist.is_initialized():
+            return ep
+        qcfg = get_arch("qwen3-moe-30b-a3b").replace(
+            num_layers=QWEN23_LAYERS)
+        K = qcfg.moe.top_k
+        try:
+            qp = None
+            with phase(f"23 (a) qwen3-moe-30b-a3b ({QWEN23_LAYERS} of 48 "
+                       f"layers) prefill through moe_ep on NCCL and "
+                       f"through moe_dense (counted)"):
+                t0 = time.perf_counter()
+                qp = api.init_params(torch.Generator(device=dev)
+                                     .manual_seed(0), qcfg, device=dev)
+                sync()
+                log(f"  qwen3-moe-30b-a3b: "
+                    f"{sum(p.numel() for p in qp.parameters())} parameters"
+                    f", {QWEN23_LAYERS} of 48 layers, d_model "
+                    f"{qcfg.d_model}, heads {qcfg.num_heads}/"
+                    f"{qcfg.num_kv_heads}, hd {qcfg.resolved_head_dim}, "
+                    f"{qcfg.moe.num_experts} experts top-{K}, d_expert "
+                    f"{qcfg.moe.d_expert}, vocab {qcfg.vocab_size} (init "
+                    f"on the card {time.perf_counter() - t0:.2f} s)")
+                r = np.random.default_rng(23)
+                batch = {"tokens": torch.from_numpy(r.integers(
+                    0, qcfg.vocab_size, (B, S))).to(dev)}
+                prefill = make_prefill_step(qcfg)
+                sync()
+                for lib in _cuda.LIBS:
+                    lib.reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with moe_mod.count_drops() as drops:
+                    got_ep = meshed(mesh, lambda: prefill(qp, batch))
+                    sync()
+                s_ep = time.perf_counter() - t0
+                peak_ep = torch.cuda.max_memory_allocated()
+                launches = {lib.name: lib.launches for lib in _cuda.LIBS}
+                routes_ = dict(_cuda.FLASH.route_launches)
+                ep["launches"] = launches["flash_attention"]
+                log(f"launches on the qwen3-moe-30b-a3b moe_ep prefill: "
+                    f"{launches}; flash routes {routes_}")
+                check(launches["flash_attention"] == QWEN23_LAYERS and
+                      routes_["tensor_core_bf16"] == QWEN23_LAYERS,
+                      f"flash kernel launched {launches['flash_attention']}"
+                      f" times ({routes_}), not once per layer "
+                      f"({QWEN23_LAYERS}) on the tensor-core route")
+                check(all(n == 0 for lib, n in launches.items()
+                          if lib != "flash_attention"),
+                      f"another kernel launched: {launches}")
+                want_choices = QWEN23_LAYERS * B * S * K
+                check(drops["choices"] == want_choices,
+                      f"moe_ep routed {drops['choices']} choices, not "
+                      f"{want_choices}: it did not take every MoE layer")
+                ep["dropped"] = drops["dropped"] / drops["choices"]
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                got_dn = prefill(qp, batch)
+                sync()
+                s_dn = time.perf_counter() - t0
+                peak_dn = torch.cuda.max_memory_allocated()
+                vp = qp.embed.shape[0]
+                for what, got in (("moe_ep", got_ep), ("moe_dense", got_dn)):
+                    check(tuple(got.shape) == (B, vp) and
+                          bool(torch.isfinite(got.float()).all()),
+                          f"{what} prefill logits not finite or not of "
+                          f"shape ({B}, {vp})")
+                same = torch.equal(got_ep.argmax(-1), got_dn.argmax(-1))
+                d_ep_dn = (got_ep.float() - got_dn.float()).abs().max()
+                log(f"  prefill B={B} S={S} bf16, first calls: moe_ep "
+                    f"{s_ep:.3f} s, peak {peak_ep / 2**30:.3f} GiB; "
+                    f"moe_dense {s_dn:.3f} s, peak {peak_dn / 2**30:.3f} "
+                    f"GiB; top-{K} choices dropped at capacity 1.25: "
+                    f"{drops['dropped']} of {drops['choices']} "
+                    f"({100 * ep['dropped']:.3f} %); the two lanes' "
+                    f"last-position logits differ by {d_ep_dn.item():.3g} "
+                    f"(argmax agree {same}) [{card}]")
+                ep_ms = cuda_time(lambda: meshed(
+                    mesh, lambda: prefill(qp, batch)), 3)
+                dn_ms = cuda_time(lambda: prefill(qp, batch), 3)
+                busy_ep = device_busy(lambda: meshed(
+                    mesh, lambda: prefill(qp, batch)))
+                busy_dn = device_busy(lambda: prefill(qp, batch))
+                ep["prefill_ms"] = {"moe_ep": ep_ms, "moe_dense": dn_ms}
+                log(f"  prefill step median of 3: moe_ep {ep_ms:.3f} ms, "
+                    f"moe_dense {dn_ms:.3f} ms ({dn_ms / ep_ms:.2f}x, with "
+                    f"{100 * ep['dropped']:.1f} % of moe_ep's top-{K} "
+                    f"choices dropped at capacity 1.25) [{card}]")
+                log(f"  device busy, moe_ep prefill: {busy_ep} [{card}]")
+                log(f"  device busy, moe_dense prefill: {busy_dn} [{card}]")
+                del got_ep, got_dn
+
+            with phase("23 (a) routing by layer: drops, expert loads, the "
+                       "MoE inputs' shared direction; moe_ep at capacity "
+                       "1.25 against moe_dense on its keep mask"):
+                seen, moe0 = [], lm.moe
+
+                def record(p, h, cfg, mesh=None):
+                    seen.append((shared_direction(h), h.detach().clone()
+                                 if len(seen) in (0, QWEN23_LAYERS - 1)
+                                 else None))
+                    return moe0(p, h, cfg, mesh=mesh)
+
+                lm.moe = record
+                try:
+                    with moe_mod.count_drops() as rd:
+                        meshed(mesh, lambda: prefill(qp, batch))
+                finally:
+                    lm.moe = moe0
+                E_pad = qp.layers[0].moe.router.shape[-1]
+                C = max(4, -(-int(1.25 * K * B * S / E_pad) // 4) * 4)
+                rows = []
+                for i, ((cos, _), keep, load) in enumerate(zip(
+                        seen, rd["keep"], rd["load"])):
+                    rows.append({
+                        "layer": i, "dropped": float((~keep).float().mean()),
+                        "load_max": int(load.max()),
+                        "experts_over_C": int((load > C).sum()),
+                        "experts_idle": int((load == 0).sum()),
+                        "top_loads": sorted(load.tolist())[::-1][:4],
+                        "shared_direction": cos})
+                    log(f"  layer {i:2d}: dropped "
+                        f"{100 * rows[-1]['dropped']:6.2f} %, load max "
+                        f"{rows[-1]['load_max']} (mean {B * S * K // E_pad},"
+                        f" C {C}), experts over C "
+                        f"{rows[-1]['experts_over_C']}, idle "
+                        f"{rows[-1]['experts_idle']}, top loads "
+                        f"{rows[-1]['top_loads']}; shared direction of the "
+                        f"MoE input {cos:.4f}")
+                check(len(rows) == QWEN23_LAYERS and
+                      abs(sum(r["dropped"] for r in rows) / len(rows)
+                          - ep["dropped"]) < 1e-3,
+                      "the recorded prefill's drops differ from (a)'s")
+                ep["layers"] = rows
+                # the control: layer 0's router on iid inputs of the shape
+                xr = torch.from_numpy(np.random.default_rng(27)
+                                      .standard_normal((B, S, qcfg.d_model),
+                                                       dtype=np.float32)
+                                      ).to(dev, bf16)
+                with torch.no_grad(), moe_mod.count_drops() as iid:
+                    moe_mod.moe_ep(qp.layers[0].moe, xr, qcfg, mesh)
+                ep["dropped_iid"] = iid["dropped"] / iid["choices"]
+                log(f"  layer 0 on iid normal inputs of the same shape "
+                    f"(shared direction {shared_direction(xr):.4f}): "
+                    f"dropped {100 * ep['dropped_iid']:.2f} %, load max "
+                    f"{int(iid['load'][0].max())}")
+                del xr
+                for i in (0, QWEN23_LAYERS - 1):
+                    err32, lim32, err16, lim16, dr = agree(
+                        qp.layers[i].moe, seen[i][1], qcfg, mesh, 1.25)
+                    log(f"  layer {i}'s MoE input (B={B} S={S} bf16) at "
+                        f"capacity 1.25, {100 * dr:.2f} % dropped: moe_ep "
+                        f"against moe_dense on its keep mask, float32 "
+                        f"{err32:.3g} (limit {lim32:.3g}), bf16 "
+                        f"{err16:.3g} (limit {lim16:.3g})")
+                del seen
+
+            with phase("23 (a) moe_ep against moe_dense at dropless "
+                       "capacity on layer 0's input (float32, bf16); flash "
+                       "at group size 8, hd 128"):
+                q32 = qcfg.replace(dtype="float32")
+                Ba, Sa = AGREE23
+                toks = torch.from_numpy(np.random.default_rng(24).integers(
+                    0, qcfg.vocab_size, (Ba, Sa))).to(dev)
+                seen = []
+                moe0 = lm.moe
+
+                def record(p, h, cfg, mesh=None):
+                    if not seen:
+                        seen.append(h.detach().clone())
+                    return moe0(p, h, cfg, mesh=mesh)
+
+                lm.moe = record
+                try:
+                    meshed(mesh, lambda: make_prefill_step(q32)(
+                        qp, {"tokens": toks}))
+                finally:
+                    lm.moe = moe0
+                err32, lim32, err16, lim16, _ = agree(qp.layers[0].moe,
+                                                      seen[0], q32, mesh)
+                ep["agree"] = {"f32": err32, "bf16": err16}
+                log(f"  layer 0's MoE input from a float32 prefill (B={Ba} "
+                    f"S={Sa}), capacity E_pad / top_k = "
+                    f"{qcfg.moe.num_experts // K} (no drop): float32 max "
+                    f"abs diff {err32:.3g} (limit {lim32:.3g}); bf16 "
+                    f"{err16:.3g} (limit {lim16:.3g}: twice the dense "
+                    f"lane's own bf16 error)")
+                H, Hkv, hd = qcfg.num_heads, qcfg.num_kv_heads, \
+                    qcfg.resolved_head_dim
+                q, k, v = attn_inputs(B, S, H, Hkv, hd, bf16)
+                call = (lambda: fa_kernel.flash_attention_bhsd(
+                    q, k, v, group_size=H // Hkv))
+                kern = call()
+                want = fa_ref.attention_ref(q, k, v, group_size=H // Hkv)
+                k_err = (kern.float() - want.float()).abs().max().item()
+                torch.testing.assert_close(kern.float(), want.float(),
+                                           rtol=2.0 ** -7, atol=1e-3)
+                args = (q.view(B, H, S, hd), k.view(B, Hkv, S, hd),
+                        v.view(B, Hkv, S, hd))
+
+                def lib():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        *args, is_causal=True, enable_gqa=True)
+
+                vs_lib = (kern.float() - lib().float().reshape(
+                    B * H, S, hd)).abs().max().item()
+                k_ms = cuda_time(call, 5)
+                p_ms = cuda_time(lambda: fa_ref.attention_ref(
+                    q, k, v, group_size=H // Hkv), 2)
+                lib_ms = cuda_time(lib, 5)
+                bound_ms, bound_by = attn_bound(B, S, H, Hkv, hd, bf16)
+                ep["flash"] = {
+                    "shape": f"qwen3-moe-30b-a3b: B={B} S={S} H={H}/{Hkv} "
+                             f"hd={hd} bf16 causal (group size {H // Hkv})",
+                    "route": "tensor_core_bf16", "ms": k_ms,
+                    "plain_ms": p_ms, "library_ms": lib_ms,
+                    "library": "scaled_dot_product_attention(enable_gqa="
+                               "True, is_causal)",
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": k_err, "max_abs_vs_library": vs_lib,
+                    "launches": ep["launches"],
+                    "tflops": 4 * B * H * hd * kept_pairs(S, True, 0)
+                    / (k_ms * 1e-3) / 1e12}
+                del q, k, v, kern, want, args
+                log(f"  flash {ep['flash']} [{card}]")
+
+            with phase("23 (b) qwen3-moe-30b-a3b serving (decode: "
+                       "moe_dense)"):
+                check(qp is not None, "no weights from (a)")
+                r = np.random.default_rng(25)
+                prompts = r.integers(0, qcfg.vocab_size, (n_prompts, p_len))
+                requests = [r.integers(0, qcfg.vocab_size, r_len)
+                            for _ in range(n_req)]
+                set_active_mesh(None)       # as launch.serve: dense MoE
+                torch.cuda.reset_peak_memory_stats()
+                gen = ServeEngine(qcfg, qp, batch=n_prompts,
+                                  max_len=128).generate(prompts, n_new)
+                sync()
+                t0 = time.perf_counter()
+                ServeEngine(qcfg, qp, batch=n_prompts, max_len=128) \
+                    .generate(prompts, n_new)
+                sync()
+                s_gen = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                done = ContinuousBatchingEngine(
+                    qcfg, qp, batch=slots, max_len=128).run(requests, r_new)
+                sync()
+                s_cb = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                check(gen.shape == (n_prompts, n_new) and gen.min() >= 0
+                      and gen.max() < qcfg.vocab_size,
+                      f"generate gave {gen.shape}")
+                check(len(done) == n_req and
+                      all(len(t) == r_new for _, t in done),
+                      f"continuous batching finished {len(done)} of {n_req}")
+                steps = p_len + n_new - 1
+                ep["decode_tokens_per_s"] = n_prompts * steps / s_gen
+                log(f"  ServeEngine.generate {n_prompts} x {steps} decode "
+                    f"steps: {s_gen:.3f} s (second run), "
+                    f"{ep['decode_tokens_per_s']:.2f} decode tokens/s; "
+                    f"continuous batching {n_req}x({r_len}+{r_new}) over "
+                    f"{slots} slots {s_cb:.3f} s, "
+                    f"{n_req * r_new / s_cb:.2f} new tokens/s; peak device "
+                    f"memory {peak / 2**30:.3f} GiB [{card}]")
+            qp = None
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            with phase(f"23 (c) training qwen3-moe-30b-a3b at full width "
+                       f"({TRAIN23_LAYERS} layer) through "
+                       f"repro_torch.launch.train, moe_ep at n = 1 "
+                       f"(counted)"):
+                tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt23_")
+                get0 = train_launcher.get_arch
+                train_launcher.get_arch = lambda name: get0(name).replace(
+                    num_layers=TRAIN23_LAYERS)
+                try:
+                    argv = ["--arch", "qwen3-moe-30b-a3b", "--steps", "2",
+                            "--batch", "1", "--seq", str(TRAIN23_SEQ),
+                            "--ckpt-every", "1", "--ckpt-dir", tmp,
+                            "--log-every", "1", "--device", "cuda"]
+                    for lib in _cuda.LIBS:
+                        lib.reset_counts()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    with moe_mod.count_drops() as tdrops:
+                        run1 = train_launcher.main(argv)
+                    sync()
+                    s_run1 = time.perf_counter() - t0
+                    peak = torch.cuda.max_memory_allocated()
+                    t_launch = {lib.name: lib.launches for lib in _cuda.LIBS}
+                    hist = run1["history"]
+                    check(all(np.isfinite(h["loss"]) and
+                              np.isfinite(h["grad_norm"]) for h in hist),
+                          f"a loss or grad norm is not finite: {hist}")
+                    ln_v = float(np.log(qcfg.vocab_size))
+                    check(abs(hist[0]["loss"] - ln_v) < 0.5,
+                          f"step 0's loss {hist[0]['loss']:.4f} is not "
+                          f"within 0.5 of ln(vocab) {ln_v:.4f}")
+                    check(len(tdrops["keep"]) > 0,
+                          "moe_ep did not run in the train steps")
+                    ckdir = os.path.join(tmp, qcfg.name)
+                    shutil.rmtree(os.path.join(ckdir, "step_000000000002"))
+                    t0 = time.perf_counter()
+                    run2 = train_launcher.main(argv)
+                    sync()
+                    s_run2 = time.perf_counter() - t0
+                    t_launch2 = {lib.name: lib.launches
+                                 for lib in _cuda.LIBS}
+                    ep["train_launches"] = t_launch2
+                    check(run2["start_step"] == 1 and
+                          [h["step"] for h in run2["history"]] == [2],
+                          "the resumed run did not start from step 1")
+                    d_loss = abs(run2["history"][0]["loss"] -
+                                 hist[1]["loss"]) / abs(hist[1]["loss"])
+                    d_par = max((a - b).abs().max().item() for a, b in zip(
+                        run2["params"].parameters(),
+                        run1["params"].parameters()))
+                    check(d_loss <= 1e-5 and d_par <= 1e-5,
+                          f"resumed run differs: loss {d_loss:.3g} "
+                          f"relative, weights {d_par:.3g}")
+                    check(all(n == 0 for n in t_launch2.values()),
+                          f"a kernel of ours launched in the train steps: "
+                          f"{t_launch2}")
+                    secs = [h["seconds"] for h in hist]
+                    ep["train"] = {"step_s": secs, "peak_gib": peak / 2**30}
+                    n_par = sum(p.numel() for p in run1["params"].parameters())
+                    log(f"  {n_par} parameters ({TRAIN23_LAYERS} layer), "
+                        f"B 1 x S {TRAIN23_SEQ}, remat {qcfg.remat}: losses "
+                        f"{[round(h['loss'], 4) for h in hist]} (ln vocab "
+                        f"{ln_v:.4f}), grad norms "
+                        f"{[round(h['grad_norm'], 4) for h in hist]}; "
+                        f"moe_ep calls {len(tdrops['keep'])}, choices "
+                        f"dropped {tdrops['dropped']} of "
+                        f"{tdrops['choices']}; resumed from step 1: loss "
+                        f"diff {d_loss:.3g} relative, weights {d_par:.3g}; "
+                        f"launches {t_launch} then {t_launch2}")
+                    log(f"  step wall time {[round(x, 3) for x in secs]} s "
+                        f"({TRAIN23_SEQ / secs[-1]:.1f} tokens/s); runs "
+                        f"{s_run1:.2f} s and {s_run2:.2f} s with their "
+                        f"init and checkpoints; peak device memory "
+                        f"{peak / 2**30:.3f} GiB [{card}]")
+                finally:
+                    train_launcher.get_arch = get0
+                    shutil.rmtree(tmp, ignore_errors=True)
+                    run1 = run2 = None
+                    gc.collect()
+                    torch.cuda.empty_cache()
+
+            with phase("23 (d) granite-moe-3b-a800m's MoE layer at full "
+                       "width: moe_ep (n = 1) and moe_dense"):
+                gcfg = get_arch("granite-moe-3b-a800m")
+                layer = moe_mod.MoE(gcfg, device=dev).reset_parameters(
+                    torch.Generator(device=dev).manual_seed(0))
+                x = torch.from_numpy(np.random.default_rng(26)
+                                     .standard_normal(
+                                         (B, S, gcfg.d_model),
+                                         dtype=np.float32)).to(dev)
+                xb = x.to(bf16)
+                with torch.no_grad():
+                    with moe_mod.count_drops() as gd:
+                        moe_mod.moe_ep(layer, xb, gcfg, mesh)
+                    g_ep = cuda_time(lambda: moe_mod.moe_ep(
+                        layer, xb, gcfg, mesh), 5)
+                    g_dn = cuda_time(lambda: moe_mod.moe_dense(
+                        layer, xb, gcfg), 5)
+                    b_ep = device_busy(lambda: moe_mod.moe_ep(
+                        layer, xb, gcfg, mesh))
+                    b_dn = device_busy(lambda: moe_mod.moe_dense(
+                        layer, xb, gcfg))
+                err32, lim32, err16, lim16, _ = agree(layer, x, gcfg, mesh)
+                ep["granite"] = {"moe_ep_ms": g_ep, "moe_dense_ms": g_dn,
+                                 "dropped": gd["dropped"] / gd["choices"]}
+                log(f"  device busy, granite moe_ep layer: {b_ep} [{card}]")
+                log(f"  device busy, granite moe_dense layer: {b_dn} "
+                    f"[{card}]")
+                log(f"  granite MoE layer B={B} S={S} bf16 "
+                    f"({gcfg.moe.num_experts} experts padded to "
+                    f"{layer.router.shape[-1]}, top-{gcfg.moe.top_k}): "
+                    f"moe_ep {g_ep:.3f} ms, moe_dense {g_dn:.3f} ms "
+                    f"({g_dn / g_ep:.2f}x), medians of 5 on CUDA events; "
+                    f"choices dropped at 1.25: {gd['dropped']} of "
+                    f"{gd['choices']}; dropless against moe_dense: float32 "
+                    f"{err32:.3g} (limit {lim32:.3g}), bf16 {err16:.3g} "
+                    f"(limit {lim16:.3g}) [{card}]")
+                del layer, x, xb
+        finally:
+            set_active_mesh(None)
+            dist.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
+        return ep
 
     # ---------------------------------------------------------------- 2
     with phase("2 kernels vs plain versions (synthetic inputs)"):
@@ -3310,6 +3824,8 @@ def main():
     train_launches = late.get("train_launches", {})
     fam = family_phases()
     train_launches["hymba"] = fam.get("train_launches", {})
+    eps = ep_phases()
+    train_launches["qwen3"] = eps.get("train_launches", {})
 
     for k in kernels:
         if k["name"] == "maxplus_sparse_fixpoint":
@@ -3335,6 +3851,9 @@ def main():
             k["launches_phase22_prefill"] = fam["launches"]
             k["by_shape"].extend(fam["flash"])
             k["phase22_logits_err"] = fam["errors"]
+            k["launches_phase23_prefill"] = eps.get("launches")
+            if "flash" in eps:
+                k["by_shape"].append(eps["flash"])
         if k["name"] == "mlstm_chunk":
             k["launches_train_steps"] = {
                 run: n.get("mlstm_chunk")

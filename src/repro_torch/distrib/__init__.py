@@ -1,3 +1,3 @@
-"""Fault-tolerance substrate on one device: checkpoints and the host parts
-of elastic scaling (the PyTorch port of ``repro.distrib``; its sharding
-and mesh construction have no one-card meaning and are not ported)."""
+"""Fault tolerance and distribution (the PyTorch port of ``repro.distrib``):
+checkpoints, elastic scaling, and the sharding rules over a
+``DeviceMesh``."""

@@ -1,19 +1,21 @@
-"""Elastic scaling + straggler mitigation: the host parts.
+"""Elastic scaling + straggler mitigation.
 
-The port of ``repro.distrib.elastic`` without ``make_elastic_mesh`` (a JAX
-device mesh; the port runs on one card).  ``best_mesh_shape`` is the
+The port of ``repro.distrib.elastic``.  ``best_mesh_shape`` is the
 reference's rule for the largest usable (pod, data, model) shape of a
 surviving device count: 'model' is pinned, 'data' shrinks, full pods are
-preferred.  ``StragglerMonitor`` keeps an EWMA of per-host step time and
+preferred.  ``make_elastic_mesh`` builds that shape as a ``DeviceMesh``
+over the first ``prod(shape)`` ranks of the process group (one process
+per device); the training launcher takes it with 16 ranks or more.  ``StragglerMonitor`` keeps an EWMA of per-host step time and
 reports a host that exceeds ``straggler_factor`` x the fleet median for
 ``patience`` consecutive checks; the train launcher feeds it each step.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def best_mesh_shape(n_devices: int, model_parallel: int = 16,
@@ -30,6 +32,25 @@ def best_mesh_shape(n_devices: int, model_parallel: int = 16,
         return (pods, data, model_parallel), ("pod", "data", "model")
     data = n_devices // model_parallel
     return (data, model_parallel), ("data", "model")
+
+
+def make_elastic_mesh(n_devices: Optional[int] = None,
+                      model_parallel: int = 16):
+    """:func:`best_mesh_shape` of ``n_devices`` (default: the process
+    group's world size) as a ``DeviceMesh`` over ranks ``0 ..
+    prod(shape) - 1``; every rank calls it, and a rank left out holds no
+    coordinate."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..launch.mesh import device_type
+
+    kind = device_type()
+    n = n_devices or dist.get_world_size()
+    shape, axes = best_mesh_shape(n, model_parallel)
+    used = int(np.prod(shape))
+    return DeviceMesh(kind, torch.arange(used).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 @dataclass

@@ -18,9 +18,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B, S, H, hd]; k, v: [B, S, Hkv, hd] -> [B, S, H, hd]."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
-    qb = q.transpose(1, 2).reshape(B * H, S, hd)
-    kb = k.transpose(1, 2).reshape(B * Hkv, S, hd)
-    vb = v.transpose(1, 2).reshape(B * Hkv, S, hd)
+    # contiguous: at B = 1 the reshapes are views with the transposes'
+    # strides, and the kernel takes dense rows
+    qb = q.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+    kb = k.transpose(1, 2).reshape(B * Hkv, S, hd).contiguous()
+    vb = v.transpose(1, 2).reshape(B * Hkv, S, hd).contiguous()
     out = flash_attention_bhsd(qb, kb, vb, causal=causal, window=window,
                                softcap=softcap, group_size=H // Hkv)
     return out.reshape(B, H, S, hd).transpose(1, 2)

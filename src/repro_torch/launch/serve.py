@@ -15,7 +15,8 @@ The prefill of a vlm or audio config takes seeded stand-in frontend
 embeddings (``models.frontends.synthetic_frontend``: internvl2's patches,
 seamless's frames).  The engine, as the reference's launcher runs it,
 gets no frontend: it serves text only, and the encoder-decoder decodes
-against its cache's zeroed encoder states.
+against its cache's zeroed encoder states.  As the reference's, it
+clears the active mesh: serving runs the dense MoE.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..configs import get_arch
+from ..distrib.sharding import set_active_mesh
 from ..kernels._cuda import resolve_device
 from ..models import api
 from ..models.frontends import synthetic_frontend
@@ -54,6 +56,7 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = cfg.smoke()
     device = resolve_device(args.device)
+    set_active_mesh(None)        # host demo: serving stays dense
     # drawn on the serving device: a CPU generator takes longer to draw
     # xlstm-1.3b's 2.7e9 weights than the serving run itself (PERF.md)
     params = api.init_params(torch.Generator(device=device)

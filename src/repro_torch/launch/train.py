@@ -1,10 +1,21 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch
 smollm-135m`` (``--smoke`` for the reduced config, ``--device cpu`` for
-the plain versions on a machine without a card).
+the plain versions on a machine without a card); several processes with
+``torchrun --nproc-per-node N -m repro_torch.launch.train ...``.
 
-The port of ``repro.launch.train``: the reference's flags and its loop on
-one device, with no mesh.
+The port of ``repro.launch.train``: the reference's flags and its loop.
 
+  * the mesh, as the reference installs it: ``launch.mesh.make_host_mesh()``
+    ((world, 1) ``("data", "model")``) under ``--smoke`` or with fewer than
+    16 ranks, else ``distrib.elastic.make_elastic_mesh()``; it becomes the
+    active mesh for the run (the MoE families take ``moe_ep`` over
+    'model', at n = 1 on the host mesh).  The process group is NCCL on the
+    card and gloo on the CPU: ``torchrun``'s, or one of a single process
+    that the launcher starts and ends;
+  * data parallelism: each 'data' rank takes its rows of the global batch
+    (``batch_spec``), and the train step averages gradients and the loss
+    over the DP group before compression and the clip; only rank 0 writes
+    checkpoints;
   * the data stream is the reference's (``data.pipeline``): batch i is a
     pure function of (seed, i, host), so a restart resumes it exactly;
   * auto-restart: resumes from the latest complete checkpoint (atomic,
@@ -27,15 +38,19 @@ import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_arch
 from ..data.pipeline import DataConfig, SyntheticTokenStream
 from ..distrib.checkpoint import CheckpointManager
-from ..distrib.elastic import StragglerMonitor
+from ..distrib.elastic import StragglerMonitor, make_elastic_mesh
+from ..distrib.sharding import (active_mesh, batch_spec, local_slice,
+                                mesh_axes, set_active_mesh)
 from ..kernels._cuda import resolve_device
 from ..models import api
 from ..optim.adamw import init_adamw
 from ..train.step import make_train_step
+from .mesh import init_process_group, make_host_mesh
 
 
 def _sync(device: torch.device) -> None:
@@ -66,12 +81,34 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.smoke:
         cfg = cfg.smoke()
     device = resolve_device(args.device)
-    print(f"device: {device} (one device, no mesh)")
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    started = init_process_group(device)
+    before = active_mesh()
+    try:
+        return _run(args, cfg, device)
+    finally:
+        set_active_mesh(before)
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, device: torch.device) -> Dict[str, Any]:
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_host_mesh() if args.smoke or world < 16 \
+        else make_elastic_mesh()
+    set_active_mesh(mesh)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"mesh: {mesh_axes(mesh)} on {device} ({world} processes)")
 
     data = SyntheticTokenStream(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, seed=args.seed,
         frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model))
+    # this rank's rows of the global batch (the reference's batch_spec)
+    rows = local_slice(mesh, batch_spec(mesh, 2, batch_size=args.batch)[0],
+                       args.batch)
 
     ckpt = CheckpointManager(os.path.join(args.ckpt_dir, cfg.name))
     params = api.init_params(torch.Generator(device=device)
@@ -83,7 +120,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         params, opt_state, extra = ckpt.restore(latest, params, opt_state)
         data.restore(extra["data"])
         start_step = latest
-        print(f"restored checkpoint step {latest}")
+        say(f"restored checkpoint step {latest}")
 
     step_fn = make_train_step(cfg, total_steps=args.steps, peak_lr=args.lr,
                               grad_compression=args.grad_compression)
@@ -92,7 +129,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     history: List[Dict[str, float]] = []
     t_start = time.time()
     for step in range(start_step, args.steps):
-        batch = {k: torch.from_numpy(v).to(device)
+        batch = {k: torch.from_numpy(v[rows]).to(device)
                  for k, v in data.next_batch().items()}
         t0 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
@@ -102,20 +139,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         history.append({"step": step + 1, **metrics, "seconds": dt})
         monitor.record(0, dt)
         if (step + 1) % args.log_every == 0:
-            print(f"step {step+1:6d} loss={metrics['loss']:.4f} "
-                  f"gnorm={metrics['grad_norm']:.3f} "
-                  f"lr={metrics['lr']:.2e} {dt*1e3:.0f}ms", flush=True)
+            say(f"step {step+1:6d} loss={metrics['loss']:.4f} "
+                f"gnorm={metrics['grad_norm']:.3f} "
+                f"lr={metrics['lr']:.2e} {dt*1e3:.0f}ms", flush=True)
         if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
-            path = ckpt.save(step + 1, params, opt_state,
-                             extra={"data": data.state()})
-            print(f"checkpoint -> {path}")
+            if rank == 0:
+                path = ckpt.save(step + 1, params, opt_state,
+                                 extra={"data": data.state()})
+                say(f"checkpoint -> {path}")
+            if world > 1:
+                dist.barrier()
         if monitor.stragglers():
-            print("straggler detected; in production this host is evicted "
-                  "and the elastic re-mesh path rebalances the fleet")
+            say("straggler detected; in production this host is evicted "
+                "and the elastic re-mesh path rebalances the fleet")
     total = time.time() - t_start
-    print(f"done: {args.steps - start_step} steps in {total:.1f}s")
+    say(f"done: {args.steps - start_step} steps in {total:.1f}s")
     return {"start_step": start_step, "history": history, "params": params,
-            "opt_state": opt_state, "data_state": data.state(), "cfg": cfg}
+            "opt_state": opt_state, "data_state": data.state(), "cfg": cfg,
+            "mesh": mesh_axes(mesh), "rows": rows}
 
 
 if __name__ == "__main__":

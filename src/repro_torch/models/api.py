@@ -1,6 +1,6 @@
 """Family-dispatching model API: one entry point for every architecture.
 
-    init_params(key, cfg, device=...)          -> params
+    init_params(key, cfg, device=..., mesh=)   -> params
     forward(params, tokens, cfg, frontend)     -> logits
     loss_fn(params, tokens, targets, cfg, ...) -> scalar
     init_cache(cfg, batch, max_len, ...)       -> decode cache
@@ -39,7 +39,11 @@ def generator(key: Union[int, torch.Generator]) -> torch.Generator:
     return torch.Generator().manual_seed(int(key))
 
 
-def init_params(key, cfg: ArchConfig, *, device="cuda"):
+def init_params(key, cfg: ArchConfig, *, device="cuda", mesh=None):
+    """``mesh``: an expert-parallel mesh, whose 'model' rank holds only its
+    own experts (``lm.init_params``); the other families ignore it."""
+    if mesh is not None and cfg.family != "audio":
+        return lm.init_params(generator(key), cfg, device=device, mesh=mesh)
     return _mod(cfg).init_params(generator(key), cfg, device=device)
 
 

@@ -9,8 +9,10 @@ windows are Python ints.  Families:
   dense / vlm  pre-norm GQA attention and gated MLP (gemma2's post
                norms); vlm prepends the frontend's patch embeddings to
                the token stream and takes its loss on the text only
-  moe          GQA attention and the top-k MoE FFN (``moe.moe_dense``:
-               the reference's path with no mesh)
+  moe          GQA attention and the top-k MoE FFN (``moe.moe``: the
+               expert-parallel ``moe_ep`` in the full-sequence forward
+               under an active mesh and ``impl="ep"``, else
+               ``moe_dense``; decode always ``moe_dense``)
   hybrid       hymba: attention and the SSM block in parallel on the same
                normed input, ``a = 0.5 * (attn + ssm)``, then a gated MLP
   ssm          xlstm: G = num_layers / slstm_every supergroups, each
@@ -35,9 +37,13 @@ checkpointed chunks for long sequences.  The SSM scan, the MoE and the
 sLSTM are plain torch on both lanes (the reference has no Pallas kernel
 for them).
 
-The reference's ``jax.lax.scan`` over stacked layers and its sharding
-constraints have no counterpart here: the port runs eagerly on one
-device.  An unknown family raises ``NotImplementedError``.
+The reference's ``jax.lax.scan`` over stacked layers has no counterpart
+here: the port runs eagerly.  Its sharding constraints are layouts only;
+the one layout change that runs is the MoE's: with an active mesh whose
+'model' axis has n > 1 ranks, ``moe.moe`` hands ``moe_ep`` this rank's
+sequence chunk and gathers the output over 'model' (the reference's
+``shard_map`` does the same); the rest of the block runs replicated over
+'model'.  An unknown family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,13 +54,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distrib.sharding import active_mesh
 from ..kernels._cuda import resolve_device
 from .attention import (LANES, Attention, attention, decode_attention,
                         decode_attention_quant, init_kv_cache)
 from .common import (dense_init, dtype_of, embed_init, mask_vocab_pad,
                      padded_vocab, rms_norm, scalar_in, softcap, weight)
 from .mlp import MLP, mlp
-from .moe import MoE, moe_dense
+from .moe import MoE, local_experts, moe
 from .ssm import SSM, init_ssm_cache, ssm_decode_step, ssm_forward
 from .xlstm import (MLSTM, SLSTM, init_mlstm_cache, init_slstm_cache,
                     mlstm_decode_step, mlstm_forward, slstm_decode_step,
@@ -76,15 +83,16 @@ def check_family(cfg: ArchConfig) -> None:
 class Block(nn.Module):
     """One pre-norm block: attention, and the MoE for the moe family or
     else a gated MLP; hybrid adds the SSM block beside the attention;
-    gemma2's post norms when ``cfg.post_norms``."""
+    gemma2's post norms when ``cfg.post_norms``; ``experts`` as for
+    :class:`moe.MoE`."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None):
+    def __init__(self, cfg: ArchConfig, *, device=None, experts=None):
         super().__init__()
         self.ln1 = weight((cfg.d_model,), device)
         self.attn = Attention(cfg, device=device)
         self.ln2 = weight((cfg.d_model,), device)
         if cfg.family == "moe":
-            self.moe = MoE(cfg, device=device)
+            self.moe = MoE(cfg, device=device, experts=experts)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device)
         if cfg.family == "hybrid":
@@ -136,9 +144,10 @@ class XLSTMGroup(nn.Module):
 
 class LM(nn.Module):
     """The parameters of an LM (f32, ``param_dtype``): ``layers`` of
-    :class:`Block`, or ``groups`` of :class:`XLSTMGroup` for ssm."""
+    :class:`Block`, or ``groups`` of :class:`XLSTMGroup` for ssm.
+    ``experts=(lo, hi)``: each MoE layer holds only those experts."""
 
-    def __init__(self, cfg: ArchConfig, *, device=None):
+    def __init__(self, cfg: ArchConfig, *, device=None, experts=None):
         super().__init__()
         check_family(cfg)
         self.embed = weight((padded_vocab(cfg.vocab_size), cfg.d_model),
@@ -152,8 +161,9 @@ class LM(nn.Module):
             self.groups = nn.ModuleList(XLSTMGroup(cfg, device=device)
                                         for _ in range(G))
         else:
-            self.layers = nn.ModuleList(Block(cfg, device=device)
-                                        for _ in range(cfg.num_layers))
+            self.layers = nn.ModuleList(
+                Block(cfg, device=device, experts=experts)
+                for _ in range(cfg.num_layers))
 
     @property
     def device(self) -> torch.device:
@@ -183,22 +193,30 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
     return [0] * L
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"
-                ) -> LM:
+def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda",
+                mesh=None) -> LM:
     """Seeded weights (:meth:`LM.reset_parameters`) on ``device`` (default
     ``"cuda"``, which raises without a card; pass ``"cpu"`` for the plain
-    versions of the kernels)."""
-    return LM(cfg, device=resolve_device(device)).reset_parameters(gen)
+    versions of the kernels).  With a ``mesh`` whose 'model' axis has
+    several ranks, each MoE layer holds only this rank's experts
+    (:func:`moe.local_experts`), with the values the whole layer would
+    have.  That is for the forward: the train step's global-norm clip
+    reads only the gradients a rank holds, so training keeps every expert
+    on every rank (``launch.train`` passes no mesh here)."""
+    return LM(cfg, device=resolve_device(device),
+              experts=local_experts(cfg, mesh)).reset_parameters(gen)
 
 
 # -------------------------------------------------------------- block bodies
 def _block(p: Block, x: torch.Tensor, cfg: ArchConfig,
            attend: Callable[[Attention, torch.Tensor], torch.Tensor],
-           mix: Optional[Callable[[SSM, torch.Tensor], torch.Tensor]] = None
-           ) -> torch.Tensor:
+           mix: Optional[Callable[[SSM, torch.Tensor], torch.Tensor]] = None,
+           mesh=None) -> torch.Tensor:
     """One block; ``attend(p.attn, h)`` is full-sequence attention in the
     forward and one-token attention over the cache in decode, and
-    ``mix(p.ssm, h)`` the hybrid family's SSM block, likewise."""
+    ``mix(p.ssm, h)`` the hybrid family's SSM block, likewise.  ``mesh``
+    is the active mesh in the forward (the MoE's dispatch) and ``None`` in
+    decode (dense MoE, as the reference's decode)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     a = attend(p.attn, h)
     if cfg.family == "hybrid":
@@ -207,8 +225,8 @@ def _block(p: Block, x: torch.Tensor, cfg: ArchConfig,
         a = rms_norm(a, p.pn1, cfg.norm_eps)
     x = x + a
     h = rms_norm(x, p.ln2, cfg.norm_eps)
-    # the reference's ``moe`` with no mesh, in the forward and in decode
-    f = moe_dense(p.moe, h, cfg) if cfg.family == "moe" else mlp(p.mlp, h)
+    f = moe(p.moe, h, cfg, mesh=mesh) if cfg.family == "moe" \
+        else mlp(p.mlp, h)
     if cfg.post_norms:
         f = rms_norm(f, p.pn2, cfg.norm_eps)
     return x + f
@@ -237,7 +255,7 @@ def _dense_layer(blk: Block, x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor, w: int, lane: str) -> torch.Tensor:
     return _block(blk, x, cfg, lambda pa, h: attention(
         pa, h, cfg, positions, window=w, lane=lane),
-        lambda ps, h: ssm_forward(ps, h, cfg))
+        lambda ps, h: ssm_forward(ps, h, cfg), mesh=active_mesh())
 
 
 def _mlstm_layer(blk: MLSTM, ln: torch.Tensor, x: torch.Tensor,

@@ -2,7 +2,12 @@
 ``repro.train.step``.
 
 ``make_train_step`` builds the update: loss -> grad -> global-norm clip ->
-AdamW -> new params, as the reference's does.  The loss runs the models'
+AdamW -> new params, as the reference's does.  Under an active mesh
+(``distrib.sharding.set_active_mesh``; ``launch.train`` installs one) each
+data-parallel rank holds its shard of the global batch, and the gradients
+and the loss are averaged over the DP group before compression and the
+clip (:func:`reduce_gradients`), so every rank takes the step the global
+batch gives.  The loss runs the models'
 training lane (plain torch under autograd; the hand-written kernels have
 no backward); under ``cast_bf16`` it runs on bf16 copies of the f32
 parameters (``models.common.cast_params``), so the gradients come back to
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..distrib.sharding import active_mesh, dp_axes, mesh_axes
 from ..models import api
 from ..models.common import cast_params
 from ..models.convert import by_reference_leaf
@@ -44,6 +50,31 @@ def constrain_like_params(tree):
     its active mesh; on one device there is none, so the tree comes back
     unchanged (as the reference's does with no mesh)."""
     return tree
+
+
+def reduce_gradients(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                     mesh) -> torch.Tensor:
+    """Average ``grads`` (in place) and ``loss`` over the mesh's DP axes;
+    returns the loss.  Nothing happens on a mesh of one DP rank or with no
+    mesh.  The MoE sums its own replicated weights' gradients over 'model'
+    in its backward (``models.moe``)."""
+    if mesh is None:
+        return loss
+    import torch.distributed as dist
+
+    sizes = mesh_axes(mesh)
+    dp = [a for a in dp_axes(mesh) if sizes[a] > 1]
+    if not dp:
+        return loss
+    n = 1
+    for a in dp:
+        n *= sizes[a]
+    loss = loss.detach().clone()
+    for t in list(grads.values()) + [loss]:
+        for a in dp:
+            dist.all_reduce(t, group=mesh.get_group(a))
+        t.div_(n)
+    return loss
 
 
 def lr_for(cfg: ArchConfig, step, total_steps: int = 10_000,
@@ -106,6 +137,7 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 10_000,
             grads = dict(zip(named, torch.autograd.grad(
                 loss_val, list(named.values()))))
             del p
+        loss_val = reduce_gradients(grads, loss_val, active_mesh())
         if grad_compression:
             grads = _compress_roundtrip(grads)
         grads = constrain_like_params(grads)

@@ -253,3 +253,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tops.flash_attention(torch.zeros(1, 16, 3, 32),
                              torch.zeros(1, 16, 2, 32),
                              torch.zeros(1, 16, 2, 32))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_dispatcher_hands_the_kernel_dense_rows(monkeypatch, B):
+    """The kernel takes contiguous [BH, S, hd] rows.  At B = 1 the
+    dispatcher's head-major reshapes are views with the transposes'
+    strides, which the CUDA wrapper rejects; the dispatcher must hand it
+    dense copies (a B = 1 prefill on the card raised before)."""
+    seen = []
+
+    def wrapper(q, k, v, **kw):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return tref.attention_ref(q, k, v, **kw)
+
+    monkeypatch.setattr(tops, "flash_attention_bhsd", wrapper)
+    rng = np.random.default_rng(B)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, 8, h, 32))
+                                .astype(np.float32)) for h in (4, 2, 2))
+    out = tops.flash_attention(q, k, v)
+    assert seen == [True] and out.shape == (B, 8, 4, 32)
+    want = np.asarray(ref_flash(jnp.asarray(q.numpy()), jnp.asarray(
+        k.numpy()), jnp.asarray(v.numpy())))
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)

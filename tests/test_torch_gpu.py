@@ -760,3 +760,101 @@ def test_new_families_on_the_card_match_the_cpu(dev, name, kw):
     for key in ("loss", "grad_norm"):
         torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-4,
                                    atol=0)
+
+
+# ------------------------------------------- expert parallelism, NCCL
+@pytest.fixture
+def nccl(dev):
+    """An NCCL process group of one process and the host mesh (1, 1)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    started = init_process_group(dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield make_host_mesh()
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name,full", [("qwen3-moe-30b-a3b", False),
+                                       ("granite-moe-3b-a800m", False),
+                                       ("qwen3-moe-30b-a3b", True)])
+def test_ep_moe_over_nccl_matches_moe_dense(dev, nccl, name, full):
+    """``moe_ep`` at dropless capacity (E_pad / top_k) over NCCL's
+    all-to-all at world size 1 against ``moe_dense`` on the card, f32
+    (TF32 off), within 1e-5 of the output's scale: the smoke configs and
+    one full-width qwen3 layer (128 experts, B 1 x S 256); then under
+    autograd, the input's and the experts' gradients."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(name) if full else get_arch(name).smoke()
+    p = moe.MoE(cfg, device=dev).reset_parameters(
+        torch.Generator(device=dev).manual_seed(0))
+    S = 256 if full else 32
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1 if full else 2, S, cfg.d_model)).astype(np.float32)).to(dev)
+    E, K = p.router.shape[-1], cfg.moe.top_k
+    x.requires_grad_()
+    with moe.count_drops() as drops:
+        ep = moe.moe_ep(p, x, cfg, nccl, capacity_factor=E / K)
+    dense = moe.moe_dense(p, x, cfg)
+    assert drops["dropped"] == 0
+    tol = 1e-5 * max(1.0, dense.abs().max().item())
+    assert (ep - dense).abs().max().item() <= tol
+    g = torch.randn_like(ep)
+    ga = torch.autograd.grad((ep * g).sum(), [x, p.w_gate, p.w_down])
+    gb = torch.autograd.grad((dense * g).sum(), [x, p.w_gate, p.w_down])
+    for a, b in zip(ga, gb):
+        assert (a - b).abs().max().item() <= 1e-5 * max(
+            1.0, b.abs().max().item())
+
+
+def test_ep_flash_kernel_at_qwen3_moes_shape(dev):
+    """qwen3-moe-30b-a3b's attention, 32 heads over 4 (group size 8), hd
+    128, B 2 x S 2048, bf16, on the tensor-core route; the tolerance of
+    chip_smoke.py phase 8."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 2, 2048, 32, 4, 128,
+                            seed=8)
+    routes = dict(_cuda.FLASH.route_launches)
+    got = fk.flash_attention_bhsd(q, k, v, group_size=8)
+    torch.cuda.synchronize()
+    assert _cuda.FLASH.route_launches["tensor_core_bf16"] == \
+        routes["tensor_core_bf16"] + 1
+    want = fr.attention_ref(q, k, v, group_size=8)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+
+
+def test_ep_prefill_step_takes_moe_ep_under_the_host_mesh(dev, nccl):
+    """The smoke qwen3 prefill on the card with the host mesh active goes
+    through ``moe_ep`` in every layer (choices counted) and through the
+    flash kernel once per layer, and equals the prefill with no mesh
+    (``moe_dense``) within 1e-4 (f32): 4 tokens, and a capacity of at
+    least 4 slots an expert, drop no choice."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distrib.sharding import set_active_mesh
+    from repro_torch.models import api, moe
+    from repro_torch.train.step import make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen3-moe-30b-a3b").smoke()
+    params = api.init_params(0, cfg, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 4))).to(dev)
+    pf = make_prefill_step(cfg)
+    before = _cuda.FLASH.launches
+    set_active_mesh(nccl)
+    try:
+        with moe.count_drops() as drops:
+            got = pf(params, {"tokens": toks})
+    finally:
+        set_active_mesh(None)
+    assert _cuda.FLASH.launches - before == cfg.num_layers
+    assert drops["choices"] == cfg.num_layers * 4 * cfg.moe.top_k
+    assert drops["dropped"] == 0
+    want = pf(params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -8,6 +8,10 @@ a800m and qwen3-moe-30b-a3b at ``.smoke()`` (d_model 128, 8 experts
 padded to 16, top-2, d_expert 64), float32, and the same with 2 shared
 experts (``num_shared_experts``, which no published config here uses).
 
+At depth: every layer's MoE input in a 4-layer smoke model on 2 x 128
+seeded tokens routes to the same experts, so the experts' loads (and
+the choices a capacity drops) are the reference's.
+
 Tolerances: routes (indices) identical; routing weights and
 ``moe_dense`` at 1e-5 (the same f32 arithmetic summed in another order).
 A tie between the k-th and the (k+1)-th logit would let the two
@@ -189,3 +193,44 @@ def test_moe_dense_grads_match_the_reference(layer):
         np.testing.assert_allclose(g.numpy(), w, rtol=TOL,
                                    atol=TOL * float(np.abs(w).max()),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-30b-a3b"])
+def test_loads_at_depth_are_the_references(name, monkeypatch):
+    """Each layer's MoE input in the whole model's forward (the reference
+    unrolled, ``scan_layers=False``, so its inputs can be recorded) gives
+    the reference's routes, and so its experts' loads: how unevenly
+    tokens spread over the experts at depth, and what a capacity drops,
+    is the model's, not the port's."""
+    from repro.models import lm as ref_lm
+    from repro_torch.models import lm
+
+    rcfg = ref_arch(name).smoke().replace(num_layers=4, scan_layers=False)
+    tcfg = get_arch(name).smoke().replace(num_layers=4)
+    rp = ref_api.init_params(jax.random.PRNGKey(5), rcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, rp), tcfg, device="cpu")
+    toks = np.random.default_rng(6).integers(0, rcfg.vocab_size, (2, 128))
+    seen = {"ref": [], "port": []}
+    ref_moe_apply, port_moe = ref_lm.moe_apply, lm.moe
+
+    def ref_rec(p, h, cfg, mesh=None):
+        seen["ref"].append(np.asarray(ref_moe._route(p, h, cfg.moe)[1]))
+        return ref_moe_apply(p, h, cfg, mesh=mesh)
+
+    def port_rec(p, h, cfg, mesh=None):
+        seen["port"].append(moe._route(p, h, cfg.moe)[1].numpy())
+        return port_moe(p, h, cfg, mesh=mesh)
+
+    monkeypatch.setattr(ref_lm, "moe_apply", ref_rec)
+    monkeypatch.setattr(lm, "moe", port_rec)
+    ref_lm.hidden_forward(rp, jnp.asarray(toks), rcfg)
+    with torch.no_grad():
+        lm.hidden_forward(tp, torch.from_numpy(toks), tcfg)
+    assert len(seen["ref"]) == len(seen["port"]) == 4
+    E = moe.padded_experts(tcfg.moe)
+    for i, (r, t) in enumerate(zip(seen["ref"], seen["port"])):
+        np.testing.assert_array_equal(
+            np.bincount(t.ravel(), minlength=E),
+            np.bincount(r.ravel(), minlength=E), err_msg=f"layer {i}")
+        np.testing.assert_array_equal(t, r, err_msg=f"layer {i}")
