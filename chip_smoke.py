@@ -302,6 +302,30 @@ Phases, each printing its own line:
      full width through ``moe_ep`` (n = 1) and ``moe_dense`` on one B 2 x
      S 2048 bf16 input: CUDA-event times, the choices dropped at 1.25,
      and dropless agreement as in (a).
+  24. the dry run and the executed placements: (a) ``python -m
+     repro_torch.launch.dryrun --all --mesh pod --jobs N`` (every ARCHS x
+     SHAPES cell on a fake 16 x 16 process group, N = cores worker
+     processes) and two cells on 2 x 16 x 16, on the host after every
+     timed phase (one thread each) and done within DRY_BUDGET_S: one
+     line a cell (status, GB a device, fits 80 GB,
+     the dominant term, counted over model FLOPs, collective bytes by
+     kind); every applicable cell must be ``"ok"``; (b) the roofline of
+     smollm-135m's prefill (B 4 x S 4096) and train step (B 8 x S 2048)
+     at world 1 against phase 11's and phase 21 (a)'s measured times:
+     measured over the dominant term; (c) on an NCCL group of one and the
+     mesh (1, 1), smollm-135m with DTensor parameters
+     (``distrib.sharding.device_put``): three train steps on bf16
+     copies, as ``launch.train``, against the plain parameters' (step
+     1's loss within 1e-5, the grad norms at steps 1 and 3 within 1e-3
+     relative, the loss's move over the two updates within 1 %; a
+     control lane on the rows reversed shows the step's rounding spread;
+     step times beside each other and beside 21 (a)'s), and a prefill
+     whose flash launches
+     (counts zeroed just before, read just after) must be 30; (d) with
+     four cards, qwen2.5-14b trained under FSDP over 'data' by
+     ``torchrun --nproc_per_node 4 -m repro_torch.launch.train``; with
+     one card it prints that it was skipped and why.  (c) and (d) run
+     first, (a) and (b) last, with the card idle.
      The run's total time is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
@@ -317,6 +341,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -352,6 +377,20 @@ TRAIN22_STEPS, TRAIN22_SEQ = 2, 2048
 # B x S
 QWEN23_LAYERS, TRAIN23_LAYERS = 16, 1
 PREFILL23, TRAIN23_SEQ, AGREE23 = (2, 2048), 2048, (1, 512)
+# phase 24: the dry run runs on the host after every timed phase (one
+# worker process a core beside the 2 x 16 x 16 subset and the world-1
+# roofline, which end early; one thread each) and must be done within
+# DRY_BUDGET_S; the
+# 2 x 16 x 16 subset; (c)'s train step B x S (phase 21 (a)'s) and
+# prefill B x S
+DRY_BUDGET_S = 420
+DRY_MULTIPOD = (("smollm-135m", "prefill_32k"),
+                ("qwen3-moe-30b-a3b", "decode_32k"))
+TRAIN24, PREFILL24 = (8, 2048), (4, 2048)
+# serving timings (phases 11, 14, 20 (c)): runs after the counted run,
+# which was their warm-up; one run keeps the whole script inside its
+# time limit on a slow host
+SERVE_REPS = 1
 FAILURES = []
 
 
@@ -449,6 +488,68 @@ def synthetic_chain_graph(rng, chains=16, fifos=6, lens=(50, 400)):
     return n, (slices, cw, c_seed, np.asarray(raw_dst, np.int64),
                np.asarray(raw_src, np.int64), raw_w, w_cols, r_cols,
                blocking, bound)
+
+
+DRY_ROOFLINE = r"""
+import json, sys
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch.dryrun import run_config
+cfg = get_arch("smollm-135m")
+out = {}
+for key, cell in (("prefill", ShapeCell("prefill_b4_s4096", 4096, 4,
+                                        "prefill")),
+                  ("train", ShapeCell("train_b8_s2048", 2048, 8, "train"))):
+    out[key] = run_config(cfg, cell)
+json.dump(out, open(sys.argv[1], "w"), indent=1)
+"""
+
+
+def run_dry_runs(out):
+    """Phase 24's host work, started together: the dry run of every (arch
+    x shape) cell on the 16 x 16 pod (``--jobs``), the 2 x 16 x 16 subset,
+    and the world-1 roofline of (b), each process with one thread.  Waits
+    for them DRY_BUDGET_S in all and stops any still running then;
+    returns (seconds, {name: exit code, None for one stopped})."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    env["OMP_NUM_THREADS"] = "1"
+    jobs = os.cpu_count() or 4
+    mod = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    cmds = {"pod": mod + ["--all", "--mesh", "pod", "--jobs", str(jobs),
+                          "--out", os.path.join(out, "pod")],
+            "roofline_world1": [sys.executable, "-c", DRY_ROOFLINE,
+                                os.path.join(out, "world1.json")]}
+    for arch, shape in DRY_MULTIPOD:
+        cmds[f"multipod {arch} {shape}"] = mod + [
+            "--arch", arch, "--shape", shape, "--mesh", "multipod",
+            "--out", os.path.join(out, "multipod")]
+    shutil.rmtree(out, ignore_errors=True)        # no earlier run's records
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    procs, logs = {}, []
+    try:
+        for name, cmd in cmds.items():
+            logs.append(open(os.path.join(out, name.replace(" ", "_")
+                                          + ".log"), "w"))
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                           stdout=logs[-1],
+                                           stderr=subprocess.STDOUT)
+        for p in procs.values():
+            try:
+                p.wait(timeout=max(DRY_BUDGET_S
+                                   - (time.perf_counter() - t0), 0.1))
+            except subprocess.TimeoutExpired:
+                break
+        codes = {name: p.poll() for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    return time.perf_counter() - t0, codes
 
 
 def worker_sparse_launches(pause):
@@ -878,7 +979,7 @@ def main():
                     mparams, {"tokens": toks20}), 3, warm_up=False)
                 gen_ms = cuda_time(lambda: ServeEngine(
                     mcfg, mparams, batch=4, max_len=128).generate(
-                        prompts20, 16), 2, warm_up=False)
+                        prompts20, 16), SERVE_REPS, warm_up=False)
                 steps = 64 + 16 - 1
                 B, S, H, Hkv, hd = 2, 2048, 36, 36, 64
                 q, k, v = attn_inputs(B, S, H, Hkv, hd, torch.bfloat16)
@@ -916,7 +1017,7 @@ def main():
                     f"memory {m_out['prefill_peak'] / 2**30:.3f} GiB "
                     f"[{card}]")
                 log(f"  ServeEngine.generate 4 x {steps} decode steps on the "
-                    f"int8 cache: median {gen_ms:.3f} ms of 2, "
+                    f"int8 cache: median {gen_ms:.3f} ms of {SERVE_REPS}, "
                     f"{4 * steps / (gen_ms / 1e3):.2f} decode tokens/s "
                     f"({4 * 16 / (gen_ms / 1e3):.2f} new tokens/s); "
                     f"continuous batching {m_out['cb_s']:.3f} s, "
@@ -2020,6 +2121,247 @@ def main():
             torch.cuda.empty_cache()
         return ep
 
+    # ------------------------------------------------------------ 24
+    def dry_phases():
+        """Phase 24: (c) a smollm-135m train step and prefill on DTensor
+        parameters over an NCCL group of one, (d) four-card FSDP training
+        when the machine has four cards, then, with the card idle, the
+        host work: (a) the dry run's records, (b) the world-1 roofline
+        against this card's measured times.  Returns what the kernel
+        record takes from it."""
+        import copy
+
+        import torch.distributed as dist
+
+        from repro_torch.distrib.sharding import (batch_spec, device_put,
+                                                  param_specs, placements,
+                                                  set_active_mesh,
+                                                  shardings_for)
+        from repro_torch.launch.mesh import init_process_group, make_host_mesh
+        from repro_torch.optim.adamw import init_adamw
+        from repro_torch.train.step import make_train_step
+
+        out = {}
+        with phase("24 (c) smollm-135m on DTensor parameters over an NCCL "
+                   "group of one: a train step and a prefill (counted)"):
+            check(init_process_group(dev), "a process group was running")
+            try:
+                mesh = make_host_mesh()
+                set_active_mesh(mesh)
+                scfg = get_arch("smollm-135m")
+                plain = api.init_params(torch.Generator(device=dev)
+                                        .manual_seed(0), scfg, device=dev)
+                sharded = device_put(copy.deepcopy(plain), shardings_for(
+                    mesh, param_specs(plain)))
+                check(all(type(p.data).__name__ == "DTensor"
+                          for p in sharded.parameters()),
+                      "a parameter is not a DTensor")
+                B, S = TRAIN24
+                g = np.random.default_rng(24)
+                toks = torch.from_numpy(g.integers(
+                    0, scfg.vocab_size, (B, S + 1)).astype(np.int32)).to(dev)
+                batch = {"tokens": toks[:, :-1].contiguous(),
+                         "targets": toks[:, 1:].contiguous()}
+
+                def dt(t):
+                    from torch.distributed.tensor import DTensor
+                    return DTensor.from_local(
+                        t, mesh, placements(mesh, batch_spec(mesh, t.dim())))
+
+                dbatch = {k: dt(v) for k, v in batch.items()}
+
+                def three_steps(step, lanes):
+                    """Three steps of each lane (name, params, batch) from
+                    fresh AdamW states: [(loss, grad norm)] a step, and
+                    the median time of steps 2 and 3."""
+                    seen, secs = {}, {}
+                    for name, params, b in lanes:
+                        opt = init_adamw(params)
+                        seen[name], t = [], []
+                        for i in range(3):
+                            sync()
+                            t0 = time.perf_counter()
+                            # params and the moments change in place; the
+                            # state returned holds the next step count
+                            _, opt, m = step(params, opt, b)
+                            seen[name].append((float(m["loss"]),
+                                               float(m["grad_norm"])))
+                            sync()
+                            if i:
+                                t.append(time.perf_counter() - t0)
+                        secs[name] = statistics.median(t)
+                    return seen, secs
+
+                # bf16 copies of the weights, as launch.train, at a peak lr
+                # at which steps 2 and 3 (lr 1e-4 and 2e-4 in the warm-up;
+                # step 1's is 0) move the loss.  A third lane, the plain
+                # parameters on the batch's rows reversed (the same step
+                # in exact arithmetic), shows the rounding spread of the
+                # step at this width: the lanes cannot agree closer.
+                ctrl = copy.deepcopy(plain)
+                got, times = three_steps(
+                    make_train_step(scfg, total_steps=10, peak_lr=1e-2),
+                    (("plain", plain, batch), ("dtensor", sharded, dbatch),
+                     ("control", ctrl, {k: v.flip(0).contiguous()
+                                        for k, v in batch.items()})))
+                del ctrl
+
+                def diffs(lane):
+                    """|lane - plain|: step 1's loss, the grad norms at
+                    steps 1 and 3 over the plain lane's, and the move of
+                    the loss over the two updates over the plain lane's
+                    move."""
+                    (l1, g1), _, (l3, g3) = got[lane]
+                    (p1, h1), _, (p3, h3) = got["plain"]
+                    return (abs(l1 - p1), abs(g1 - h1) / h1,
+                            abs(g3 - h3) / h3,
+                            abs((l3 - l1) - (p3 - p1)) / abs(p3 - p1))
+
+                (p1, _), _, (p3, _) = got["plain"]
+                check(p1 - p3 >= 1e-2, f"two updates moved the loss by "
+                      f"{p1 - p3:.3g} only")
+                d_dt, d_ctrl = diffs("dtensor"), diffs("control")
+                for v, lim, what in zip(d_dt, (1e-5, 1e-3, 1e-3, 1e-2), (
+                        "step 1's loss", "step 1's grad norm (relative)",
+                        "step 3's grad norm (relative)",
+                        "the loss's move over two updates (relative)")):
+                    check(v <= lim, f"DTensor against plain: {what} "
+                          f"differs by {v:.3g} (limit {lim:g})")
+                log(f"  train step B={B} S={S} (bf16 copies), three steps: "
+                    f"plain loss {p1:.6f} -> {p3:.6f}; DTensor against "
+                    f"plain: step 1's loss {d_dt[0]:.3g} (limit 1e-5), grad "
+                    f"norm at steps 1 and 3 {d_dt[1]:.3g}, {d_dt[2]:.3g} "
+                    f"relative (limit 1e-3), the loss's move "
+                    f"{d_dt[3]:.3g} relative (limit 1e-2); the control lane "
+                    f"(rows reversed) against plain: {d_ctrl[0]:.3g}, "
+                    f"{d_ctrl[1]:.3g}, {d_ctrl[2]:.3g}, {d_ctrl[3]:.3g}; "
+                    f"step time plain {times['plain']:.3f} s, DTensor "
+                    f"{times['dtensor']:.3f} s (medians of steps 2 and 3), "
+                    f"phase 21 (a)'s launch.train step "
+                    f"{late.get('train_smollm', {}).get('step_s', 0):.3f} s "
+                    f"[{card}]")
+                del sharded, plain
+                gc.collect()
+                torch.cuda.empty_cache()
+                plain = api.init_params(torch.Generator(device=dev)
+                                        .manual_seed(1), scfg, device=dev)
+                sharded = device_put(copy.deepcopy(plain), shardings_for(
+                    mesh, param_specs(plain)))
+                pb = {"tokens": toks[:PREFILL24[0], :PREFILL24[1]]
+                      .contiguous()}
+                pf24 = make_prefill_step(scfg)
+                with torch.no_grad():
+                    want = pf24(plain, pb).float()
+                    for lib in _cuda.LIBS:
+                        lib.reset_counts()
+                    got = pf24(sharded, {"tokens": dt(pb["tokens"])})
+                    sync()
+                    launches = {lib.name: lib.launches for lib in _cuda.LIBS}
+                    got = got.full_tensor().float()
+                err = (got - want).abs().max().item()
+                check(launches["flash_attention"] == scfg.num_layers,
+                      f"flash launched {launches['flash_attention']} times, "
+                      f"not {scfg.num_layers}")
+                check(sum(launches.values()) == scfg.num_layers,
+                      f"other kernels launched: {launches}")
+                check(err <= 1e-2, f"DTensor prefill logits differ by "
+                      f"{err:.3g}")
+                out["launches"] = launches["flash_attention"]
+                out["dtensor_step_s"] = times["dtensor"]
+                log(f"  prefill B={PREFILL24[0]} S={PREFILL24[1]} on DTensor "
+                    f"parameters: flash "
+                    f"launched {launches['flash_attention']} times; last "
+                    f"logits against the plain parameters' max abs "
+                    f"{err:.3g} [{card}]")
+            finally:
+                set_active_mesh(None)
+                dist.destroy_process_group()
+                gc.collect()
+                torch.cuda.empty_cache()
+        with phase("24 (d) qwen2.5-14b under FSDP over 'data' on four "
+                   "cards"):
+            if torch.cuda.device_count() < 4:
+                log(f"  skipped: {torch.cuda.device_count()} card(s) here; "
+                    f"qwen2.5-14b's parameters and AdamW state (14.7e9 x 16 "
+                    f"bytes, 236 GB) need four 80 GB cards")
+            else:
+                import tempfile
+                with tempfile.TemporaryDirectory() as tmp:
+                    cmd = [sys.executable, "-m", "torch.distributed.run",
+                           "--standalone", "--nproc_per_node", "4", "-m",
+                           "repro_torch.launch.train", "--arch",
+                           "qwen2.5-14b", "--steps", "2", "--batch", "4",
+                           "--seq", "512", "--ckpt-every", "100",
+                           "--ckpt-dir", tmp, "--log-every", "1"]
+                    env = dict(os.environ)
+                    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+                    r = subprocess.run(cmd, cwd=ROOT, env=env, text=True,
+                                       capture_output=True, timeout=900)
+                    log(r.stdout[-3000:])
+                    check(r.returncode == 0, f"torchrun exited "
+                          f"{r.returncode}: {r.stderr[-3000:]}")
+        dry_out = os.path.join(ROOT, "reports", "chip_smoke_dryrun")
+        with phase(f"24 (a) the dry run: every ARCHS x SHAPES cell on the "
+                   f"fake 16 x 16 pod, {len(DRY_MULTIPOD)} on 2 x 16 x 16 "
+                   f"(budget {DRY_BUDGET_S} s)"):
+            took, codes = run_dry_runs(dry_out)
+            log(f"  dry run done in {took:.1f} s (output in {dry_out})")
+            for name, code in codes.items():
+                check(code == 0, f"{name} "
+                      + ("passed the budget" if code is None else
+                         f"exited {code}")
+                      + f": see {dry_out}/{name.replace(' ', '_')}.log")
+            ok = skipped = 0
+            for mesh in ("pod", "multipod"):
+                d = os.path.join(dry_out, mesh)
+                for fn in sorted(os.listdir(d)):
+                    with open(os.path.join(d, fn)) as f:
+                        rec = json.load(f)
+                    if rec["status"] == "skipped":
+                        skipped += 1
+                        continue
+                    check(rec["status"] == "ok", f"{fn}: {rec['status']} "
+                          f"{rec.get('error')}")
+                    ok += 1
+                    mem, roof = rec["memory"], rec.get("roofline", {})
+                    coll = {k: f"{v / 1e9:.3f}" for k, v in
+                            rec["raw_cost"]["collectives"].items()}
+                    mf = roof.get("model_flops")
+                    ratio = (f"{roof['hlo_flops_cluster'] / mf:.3f}"
+                             if mf else "-")
+                    log(f"  {fn[:-5]:48s} {rec['status']} "
+                        f"{mem['per_device_gb']:.3f} GB/device fits_80gb_hbm"
+                        f"={mem['fits_80gb_hbm']} dominant="
+                        f"{roof.get('dominant', '-')} counted/model FLOPs="
+                        f"{ratio} collectives GB={coll} "
+                        f"({rec['compile_s']} s)")
+            check(ok == 32 + len(DRY_MULTIPOD) and skipped == 8,
+                  f"{ok} cells ok, {skipped} skipped")
+            out["dry_s"] = took
+        with phase("24 (b) the roofline at world 1 against this card's "
+                   "times (smollm-135m)"):
+            with open(os.path.join(dry_out, "world1.json")) as f:
+                w1 = json.load(f)
+            measured = {"prefill": pf_ms / 1e3,
+                        "train": late.get("train_smollm", {}).get("step_s")}
+            for key, what in (("prefill", "prefill B 4 x S 4096 (phase 11)"),
+                              ("train", "train step B 8 x S 2048 (phase 21 "
+                                        "(a))")):
+                rec = w1[key]
+                check(rec["status"] == "ok", f"{key}: {rec.get('error')}")
+                roof = rec["roofline"]
+                dom = roof[roof["dominant"] + "_s"]
+                got = measured[key]
+                check(got is not None, f"no measured time for {key}")
+                log(f"  {what}: measured {1e3 * got:.3f} ms; roofline "
+                    f"compute {1e3 * roof['compute_s']:.3f} ms, memory "
+                    f"{1e3 * roof['memory_s']:.3f} ms, collective "
+                    f"{1e3 * roof['collective_s']:.3f} ms; dominant "
+                    f"{roof['dominant']}: measured / dominant = "
+                    f"{got / dom:.3f} [{card}]")
+                out[key + "_over_dominant"] = got / dom
+        return out
+
     # ---------------------------------------------------------------- 2
     with phase("2 kernels vs plain versions (synthetic inputs)"):
         # kernel 1: seeded random chains and edges, exported like a real
@@ -2247,8 +2589,10 @@ def main():
             res = {}
             k_ms = cuda_time(lambda: res.__setitem__(
                 "k", sparse.solve_chains(arr, Dt)), 3)
+            # one run of the plain version, no warm-up (it takes up to
+            # ~35 s a call here)
             p_ms = cuda_time(lambda: res.__setitem__(
-                "p", ref.solve_chains_ref(arr, Dt)), 1)
+                "p", ref.solve_chains_ref(arr, Dt)), 1, warm_up=False)
             err = same_solve(res["k"], res["p"])
             # the plain version stops at the first round that changes
             # nothing; the kernel's loop launches more (flag read per batch)
@@ -2566,21 +2910,23 @@ def main():
         pf_ms = cuda_time(lambda: pf(params, {"tokens": toks9}), 3,
                           warm_up=False)
         gen_ms = cuda_time(lambda: ServeEngine(
-            cfg, params, batch=8, max_len=256).generate(prompts10, GEN10), 3,
-            warm_up=False)
+            cfg, params, batch=8, max_len=256).generate(prompts10, GEN10),
+            SERVE_REPS, warm_up=False)
         cb_ms = cuda_time(lambda: ContinuousBatchingEngine(
-            cfg, params, batch=8, max_len=512).run(requests10, REQ_GEN10), 3,
-            warm_up=False)
+            cfg, params, batch=8, max_len=512).run(requests10, REQ_GEN10),
+            SERVE_REPS, warm_up=False)
         steps = PROMPT10 + GEN10 - 1   # decode steps of generate()
         log(f"  prefill step smollm-135m B=4 S=4096 bf16: median "
             f"{pf_ms:.3f} ms of 3 (first {1e3 * lm_out['prefill_s']:.3f} "
             f"ms), peak device memory "
             f"{lm_out['prefill_peak'] / 2**30:.3f} GiB [{card}]")
         log(f"  ServeEngine.generate 8 x {steps} decode steps: median "
-            f"{gen_ms:.3f} ms of 3 (first {1e3 * lm_out['generate_s']:.3f} "
+            f"{gen_ms:.3f} ms of {SERVE_REPS} (first "
+            f"{1e3 * lm_out['generate_s']:.3f} "
             f"ms), {8 * steps / (gen_ms / 1e3):.2f} decode tokens/s "
             f"({8 * GEN10 / (gen_ms / 1e3):.2f} new tokens/s) [{card}]")
-        log(f"  continuous batching 12 requests: median {cb_ms:.3f} ms of 3 "
+        log(f"  continuous batching 12 requests: median {cb_ms:.3f} ms of "
+            f"{SERVE_REPS} "
             f"(first {1e3 * lm_out['cb_s']:.3f} ms), "
             f"{12 * REQ_GEN10 / (cb_ms / 1e3):.2f} new tokens/s; peak device "
             f"memory serving {lm_out['serve_peak'] / 2**30:.3f} GiB "
@@ -2869,11 +3215,11 @@ def main():
         finally:
             lm.slstm_forward = plain_slstm
         xgen_ms = cuda_time(lambda: ServeEngine(
-            xcfg, xparams, batch=4, max_len=256).generate(prompts13, 16), 3,
-            warm_up=False)
+            xcfg, xparams, batch=4, max_len=256).generate(prompts13, 16),
+            SERVE_REPS, warm_up=False)
         xcb_ms = cuda_time(lambda: ContinuousBatchingEngine(
-            xcfg, xparams, batch=4, max_len=64).run(requests13, 8), 3,
-            warm_up=False)
+            xcfg, xparams, batch=4, max_len=64).run(requests13, 8),
+            SERVE_REPS, warm_up=False)
         steps = 128 + 16 - 1           # decode steps of generate()
         mlstm_ms = x_launches["mlstm_chunk"] * by_shape[0]["ms"]
         log(f"  prefill step xlstm-1.3b B=4 S=2048 bf16: median {xp_ms:.3f} "
@@ -2886,10 +3232,12 @@ def main():
             f"{mlstm_ms:.3f} ms ({100 * mlstm_ms / xp_ms:.1f} % of the "
             f"median step) [{card}]")
         log(f"  ServeEngine.generate 4 x {steps} decode steps: median "
-            f"{xgen_ms:.3f} ms of 3 (first {1e3 * x_out['generate_s']:.3f} "
+            f"{xgen_ms:.3f} ms of {SERVE_REPS} (first "
+            f"{1e3 * x_out['generate_s']:.3f} "
             f"ms), {4 * steps / (xgen_ms / 1e3):.2f} decode tokens/s "
             f"({4 * 16 / (xgen_ms / 1e3):.2f} new tokens/s) [{card}]")
-        log(f"  continuous batching 6 requests: median {xcb_ms:.3f} ms of 3 "
+        log(f"  continuous batching 6 requests: median {xcb_ms:.3f} ms of "
+            f"{SERVE_REPS} "
             f"(first {1e3 * x_out['cb_s']:.3f} ms), "
             f"{6 * 8 / (xcb_ms / 1e3):.2f} new tokens/s; peak device "
             f"memory serving {x_out['serve_peak'] / 2**30:.3f} GiB [{card}]")
@@ -3826,6 +4174,7 @@ def main():
     train_launches["hymba"] = fam.get("train_launches", {})
     eps = ep_phases()
     train_launches["qwen3"] = eps.get("train_launches", {})
+    dry = dry_phases()
 
     for k in kernels:
         if k["name"] == "maxplus_sparse_fixpoint":
@@ -3854,6 +4203,7 @@ def main():
             k["launches_phase23_prefill"] = eps.get("launches")
             if "flash" in eps:
                 k["by_shape"].append(eps["flash"])
+            k["launches_phase24_dtensor_prefill"] = dry.get("launches")
         if k["name"] == "mlstm_chunk":
             k["launches_train_steps"] = {
                 run: n.get("mlstm_chunk")

@@ -17,6 +17,13 @@ The on-disk format is the port's own (``repro-torch-ckpt-v1``): one
 (bfloat16 and int included).  ``restore`` rebuilds the template's tree
 with each tensor cast to the template leaf's dtype and device; a module
 template gets the values copied into its parameters.
+
+Sharded state (DTensors, ``distrib.sharding.device_put``) is saved whole:
+every leaf is gathered (a collective, so every rank calls :meth:`save`,
+and only the one with ``write=True`` writes), and a DTensor template
+leaf takes its own shard of the stored whole tensor on restore (each
+rank reads the file; no collective).  A checkpoint is so independent of
+the mesh that wrote it.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from .sharding import full, is_dtensor
 
 FORMAT = "repro-torch-ckpt-v1"
 
@@ -43,13 +52,18 @@ def _fields(tree) -> Optional[Dict[str, Any]]:
     return None
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+def _flatten(tree, prefix: str = "", keep: bool = True
+             ) -> Dict[str, torch.Tensor]:
+    """``path -> tensor`` on the host; a DTensor leaf is gathered whole
+    (every rank takes part), and kept only where ``keep``, one leaf at a
+    time."""
     kids = _fields(tree)
     if kids is None:
-        return {prefix: torch.as_tensor(tree).detach().cpu()}
+        whole = full(torch.as_tensor(tree).detach())
+        return {prefix: whole.cpu()} if keep else {}
     out = {}
     for k, v in kids.items():
-        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+        out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k), keep))
     return out
 
 
@@ -59,6 +73,12 @@ def _unflatten_into(template, arrays: Dict[str, torch.Tensor],
     kids = _fields(template)
     if kids is None:
         ref = torch.as_tensor(template)
+        if is_dtensor(ref):
+            from torch.distributed.tensor import distribute_tensor
+
+            whole = arrays[prefix].to(device=ref.device, dtype=ref.dtype)
+            return distribute_tensor(whole, ref.device_mesh, ref.placements,
+                                     src_data_rank=None)
         return arrays[prefix].to(device=ref.device, dtype=ref.dtype)
     built = {k: _unflatten_into(v, arrays, f"{prefix}/{k}" if prefix
                                 else str(k)) for k, v in kids.items()}
@@ -82,15 +102,24 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, params, opt_state=None,
-             extra: Optional[Dict[str, Any]] = None) -> str:
+             extra: Optional[Dict[str, Any]] = None, write: bool = True
+             ) -> str:
+        """Writes step ``step`` and returns its directory.  With sharded
+        state every rank calls this (the leaves are gathered) and only
+        the one with ``write`` writes."""
         final = self._dir(step)
+        flat_params = _flatten(params, keep=write)
+        flat_opt = _flatten(opt_state, keep=write) \
+            if opt_state is not None else None
+        if not write:
+            return final
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        torch.save(_flatten(params), os.path.join(tmp, "params.pt"))
-        if opt_state is not None:
-            torch.save(_flatten(opt_state), os.path.join(tmp, "opt_state.pt"))
+        torch.save(flat_params, os.path.join(tmp, "params.pt"))
+        if flat_opt is not None:
+            torch.save(flat_opt, os.path.join(tmp, "opt_state.pt"))
         manifest = {"step": step, "extra": extra or {}, "format": FORMAT}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)

@@ -18,11 +18,17 @@ float32 runs them in exact f32 FMA (``"fma_f32"``).
 
 Dispatch rule: a CUDA tensor launches the kernel (or the call raises); a
 CPU tensor runs the plain version (:func:`~.ref.attention_ref`).  Either
-raises on inputs that require grad: the kernel has no backward.
+raises on inputs that require grad: the kernel has no backward.  The
+launch is the custom op ``torch.ops.repro_torch.flash_attention_bhsd``:
+on fake tensors (shapes only) it launches nothing and gives an empty
+output, and ``torch.utils.flop_counter`` counts it by the formula of the
+kernel's bound (:func:`flops`), so a count does not change when the
+kernel is redesigned.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .._cuda import FLASH, refuse_grad, stream_of
 from .ref import attention_ref
@@ -51,6 +57,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {tuple(k.shape)}")
 
 
+def kept_pairs(S: int, causal: bool = True, window: int = 0) -> int:
+    """The (q, k) pairs of one head that the masks keep: row i keeps keys
+    ``max(0, i - window + 1) ..`` up to i (causal) or S - 1."""
+    hi = S * (S + 1) // 2 if causal else S * S
+    cut = max(S - window, 0) if window > 0 else 0
+    return hi - cut * (cut + 1) // 2
+
+
+def flops(BH: int, S: int, hd: int, causal: bool = True,
+          window: int = 0) -> int:
+    """FLOPs of one call, by the formula of the kernel's bound: 4 hd per
+    kept (q, k) pair (q.k and p.v)."""
+    return 4 * BH * hd * kept_pairs(S, causal, window)
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0,
@@ -64,11 +85,19 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _check(q, k, v, group_size)
     refuse_grad("flash-attention", (q, k, v))
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    return _launch(q, k, v, causal, window, softcap, group_size)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bhsd",
+                         mutates_args=())
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: int, softcap: float,
+            group_size: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, group_size=group_size)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
     BH, S, hd = q.shape
     if q.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, got "
@@ -90,3 +119,15 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    stream_of(q))
         FLASH.count(route)
     return out
+
+
+@_launch.register_fake
+def _(q, k, v, causal, window, softcap, group_size):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bhsd)
+def _(q_shape, k_shape, v_shape, causal, window, softcap, group_size, *,
+      out_shape=None, **kwargs):
+    BH, S, hd = q_shape
+    return flops(BH, S, hd, causal, window)

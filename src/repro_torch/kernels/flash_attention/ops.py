@@ -23,6 +23,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qb = q.transpose(1, 2).reshape(B * H, S, hd).contiguous()
     kb = k.transpose(1, 2).reshape(B * Hkv, S, hd).contiguous()
     vb = v.transpose(1, 2).reshape(B * Hkv, S, hd).contiguous()
+    # a rank of a sharded model may hold no heads (H = Hkv = 0)
     out = flash_attention_bhsd(qb, kb, vb, causal=causal, window=window,
-                               softcap=softcap, group_size=H // Hkv)
+                               softcap=softcap,
+                               group_size=H // Hkv if Hkv else 1)
     return out.reshape(B, H, S, hd).transpose(1, 2)

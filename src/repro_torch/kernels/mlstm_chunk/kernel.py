@@ -19,13 +19,18 @@ error, which the call raises.
 
 Dispatch rule: a CUDA tensor launches the kernel (or the call raises); a
 CPU tensor runs the plain version (:func:`~.ref.mlstm_ref`).  Either
-raises on inputs that require grad: the kernel has no backward.
+raises on inputs that require grad: the kernel has no backward.  The
+launch is the custom op ``torch.ops.repro_torch.mlstm_chunk_bhsd``: on
+fake tensors (shapes only) it launches nothing and gives an empty
+output, and ``torch.utils.flop_counter`` counts it by the formula of the
+kernel's bound (:func:`flops`).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .._cuda import MLSTM, refuse_grad, stream_of
 from .ref import mlstm_ref
@@ -49,6 +54,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"S = {S} must be a multiple of chunk = {chunk}")
 
 
+def flops(BH: int, S: int, P: int, Pv: int, chunk: int) -> int:
+    """FLOPs of one call, by the formula of the kernel's bound: per head,
+    in every chunk the two masked products over the c(c+1)/2 pairs s <=
+    t, c(c+1)(P + Pv); the carried state's readout 2cP Pv in chunks 1..
+    and its update 2cP Pv in chunks ..nC-2."""
+    nC = S // chunk
+    return BH * (nC * chunk * (chunk + 1) * (P + Pv)
+                 + 2 * max(nC - 1, 0) * 2 * chunk * P * Pv)
+
+
 def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ig: torch.Tensor, la: torch.Tensor, *,
                      chunk: int = 128) -> torch.Tensor:
@@ -57,10 +72,16 @@ def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S / chunk chunks of each row (float32 on the card)."""
     _check(q, k, v, ig, la, chunk)
     refuse_grad("chunked-mLSTM", (q, k, v, ig, la))
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no mLSTM kernel for device {q.device}")
+    return _launch(q, k, v, ig, la, chunk)
+
+
+@torch.library.custom_op("repro_torch::mlstm_chunk_bhsd", mutates_args=())
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            ig: torch.Tensor, la: torch.Tensor, chunk: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return mlstm_ref(q, k, v, ig, la)
-    if q.device.type != "cuda":
-        raise ValueError(f"no mLSTM kernel for device {q.device}")
     BH, S, P = q.shape
     Pv = v.shape[-1]
     tensors = (q, k, v, ig, la)
@@ -82,3 +103,15 @@ def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    P, Pv, chunk, stream_of(q))
         MLSTM.count()
     return out
+
+
+@_launch.register_fake
+def _(q, k, v, ig, la, chunk):
+    return q.new_empty(q.shape[0], q.shape[1], v.shape[-1])
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunk_bhsd)
+def _(q_shape, k_shape, v_shape, ig_shape, la_shape, chunk, *,
+      out_shape=None, **kwargs):
+    BH, S, P = q_shape
+    return flops(BH, S, P, v_shape[-1], chunk)

@@ -12,10 +12,19 @@ The port of ``repro.launch.train``: the reference's flags and its loop.
     'model', at n = 1 on the host mesh).  The process group is NCCL on the
     card and gloo on the CPU: ``torchrun``'s, or one of a single process
     that the launcher starts and ends;
+  * the reference's ``device_put`` of the parameters and the AdamW state
+    under ``shardings_for(mesh, param_specs(...))``
+    (``distrib.sharding.device_put``): each leaf becomes a DTensor and a
+    rank holds only its shard.  On the host mesh (n, 1) that is FSDP over
+    'data' for every leaf whose stacked size reaches the FSDP threshold
+    (the rest replicated, as their specs say); over 'model' it is the
+    tensor-parallel and expert split;
   * data parallelism: each 'data' rank takes its rows of the global batch
-    (``batch_spec``), and the train step averages gradients and the loss
-    over the DP group before compression and the clip; only rank 0 writes
-    checkpoints;
+    (``batch_spec``) as its shard of a DTensor batch; DTensor reduces the
+    gradients over the DP axes and the clip sums every shard once
+    (``train.step``); only rank 0 writes checkpoints, which hold every
+    leaf whole (gathered on every rank) and are cut back into shards on
+    restore;
   * the data stream is the reference's (``data.pipeline``): batch i is a
     pure function of (seed, i, host), so a restart resumes it exactly;
   * auto-restart: resumes from the latest complete checkpoint (atomic,
@@ -44,8 +53,10 @@ from ..configs import get_arch
 from ..data.pipeline import DataConfig, SyntheticTokenStream
 from ..distrib.checkpoint import CheckpointManager
 from ..distrib.elastic import StragglerMonitor, make_elastic_mesh
-from ..distrib.sharding import (active_mesh, batch_spec, local_slice,
-                                mesh_axes, set_active_mesh)
+from ..distrib.sharding import (FSDP_MIN_ELEMS, active_mesh, batch_spec,
+                                device_put, is_dtensor, local_slice,
+                                mesh_axes, param_specs, placements,
+                                set_active_mesh, shardings_for)
 from ..kernels._cuda import resolve_device
 from ..models import api
 from ..optim.adamw import init_adamw
@@ -107,12 +118,23 @@ def _run(args, cfg, device: torch.device) -> Dict[str, Any]:
         global_batch=args.batch, seed=args.seed,
         frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model))
     # this rank's rows of the global batch (the reference's batch_spec)
-    rows = local_slice(mesh, batch_spec(mesh, 2, batch_size=args.batch)[0],
-                       args.batch)
+    bspec = batch_spec(mesh, 2, batch_size=args.batch)
+    rows = local_slice(mesh, bspec[0], args.batch)
 
     ckpt = CheckpointManager(os.path.join(args.ckpt_dir, cfg.name))
     params = api.init_params(torch.Generator(device=device)
                              .manual_seed(args.seed), cfg, device=device)
+    # the reference's device_put: parameters, then the AdamW state made
+    # from them, as DTensors under their specs.  When no leaf's spec
+    # splits it on this mesh (one process, or a model whose every leaf is
+    # under the FSDP threshold on (n, 1)) every rank holds every leaf
+    # whole either way, and the leaves stay plain tensors (the gradients
+    # are then averaged over the DP group by train.step.reduce_gradients)
+    shardings = shardings_for(mesh, param_specs(params, FSDP_MIN_ELEMS))
+    if any(not p.is_replicate() and n > 1 for sh in shardings.values()
+           for p, n in zip(sh.placements, mesh.shape)):
+        params = device_put(params, shardings)
+        say("parameters and AdamW state: DTensors under their specs")
     opt_state = init_adamw(params)
     start_step = 0
     latest = ckpt.latest()
@@ -131,6 +153,9 @@ def _run(args, cfg, device: torch.device) -> Dict[str, Any]:
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v[rows]).to(device)
                  for k, v in data.next_batch().items()}
+        if is_dtensor(params.embed):
+            batch = {k: _shard_of(v, mesh, args.batch)
+                     for k, v in batch.items()}
         t0 = time.time()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}
@@ -143,10 +168,10 @@ def _run(args, cfg, device: torch.device) -> Dict[str, Any]:
                 f"gnorm={metrics['grad_norm']:.3f} "
                 f"lr={metrics['lr']:.2e} {dt*1e3:.0f}ms", flush=True)
         if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
-            if rank == 0:
-                path = ckpt.save(step + 1, params, opt_state,
-                                 extra={"data": data.state()})
-                say(f"checkpoint -> {path}")
+            # every rank gathers the leaves; rank 0 writes them
+            path = ckpt.save(step + 1, params, opt_state,
+                             extra={"data": data.state()}, write=rank == 0)
+            say(f"checkpoint -> {path}")
             if world > 1:
                 dist.barrier()
         if monitor.stragglers():
@@ -157,6 +182,22 @@ def _run(args, cfg, device: torch.device) -> Dict[str, Any]:
     return {"start_step": start_step, "history": history, "params": params,
             "opt_state": opt_state, "data_state": data.state(), "cfg": cfg,
             "mesh": mesh_axes(mesh), "rows": rows}
+
+
+def _shard_of(local: torch.Tensor, mesh, global_batch: int):
+    """This rank's rows of a batch array as its shard of a DTensor whose
+    dim 0 is split by ``batch_spec``."""
+    from torch.distributed.tensor import DTensor
+
+    spec = batch_spec(mesh, local.dim(), batch_size=global_batch)
+    shape = (global_batch, *local.shape[1:])
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.insert(0, step)
+        step *= n
+    return DTensor.from_local(local.contiguous(), mesh,
+                              placements(mesh, spec), run_check=False,
+                              shape=shape, stride=tuple(stride))
 
 
 if __name__ == "__main__":

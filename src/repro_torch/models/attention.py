@@ -27,6 +27,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distrib.sharding import (full, gqa_on_local, is_dtensor, linear,
+                                local_shape_and_offset, reshape)
 from ..kernels.flash_attention import ops as fa_ops
 from .common import (apply_rope, causal_mask, dense_init, scalar_in, softcap,
                      weight)
@@ -67,16 +69,16 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p.wq.to(x.dtype)
-    k = x @ p.wk.to(x.dtype)
-    v = x @ p.wv.to(x.dtype)
+    q = linear(x, p.wq.to(x.dtype))
+    k = linear(x, p.wk.to(x.dtype))
+    v = linear(x, p.wv.to(x.dtype))
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    q = reshape(q, B, S, cfg.num_heads, hd)
+    k = reshape(k, B, S, cfg.num_kv_heads, hd)
+    v = reshape(v, B, S, cfg.num_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -143,16 +145,50 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
     if lane == "kernel":
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
-                                     softcap=cfg.attn_softcap)
-        out = out.reshape(B, S, -1)
+        def flash(a, b, c, _g=None):
+            return fa_ops.flash_attention(a, b, c, causal=True, window=window,
+                                          softcap=cfg.attn_softcap)
+
+        # on DTensors the kernel runs on each rank's own heads
+        out = reshape(gqa_on_local(flash, q, k, v) if is_dtensor(q)
+                      else flash(q, k, v), B, S, -1)
     elif lane != "train":
         raise ValueError(f"lane must be one of {LANES}, got {lane!r}")
-    elif S > QCHUNK and S % QCHUNK == 0 and not cfg.cost_analysis_mode:
-        out = _sdpa_chunked(q, k, v, cfg, positions, window)
+    elif is_dtensor(q):
+        # each rank's own heads, on plain tensors; positions are 0..S-1
+        out = reshape(gqa_on_local(lambda a, b, c, g: _causal_core(
+            a, b, c, cfg, torch.arange(S, device=a.device)[None], window
+        ).reshape(a.shape), q, k, v), B, S, -1)
     else:
-        out = _sdpa(q, k, v, causal_mask(positions, positions, window), cfg)
-    return out @ p.wo.to(x.dtype)
+        out = _causal_core(q, k, v, cfg, positions, window)
+    return linear(out, p.wo.to(x.dtype))
+
+
+def _causal_core(q, k, v, cfg: ArchConfig, positions, window: int):
+    """The train lane's attention after the projections: :func:`_sdpa_chunked`
+    when S is a multiple of :data:`QCHUNK` above it, else :func:`_sdpa`
+    with the causal (and window) mask."""
+    S = q.shape[1]
+    if S > QCHUNK and S % QCHUNK == 0 and not cfg.cost_analysis_mode:
+        return _sdpa_chunked(q, k, v, cfg, positions, window)
+    return _sdpa(q, k, v, causal_mask(positions, positions, window), cfg)
+
+
+def full_attention(q, k, v, cfg: ArchConfig) -> torch.Tensor:
+    """Unmasked :func:`_sdpa` (the encoder's and the cross-attention's),
+    q [B, Sq, H, hd], k, v [B, Sk, Hkv, hd] -> [B, Sq, H * hd]; on
+    DTensors each rank runs its own heads."""
+    def core(a, b, c, _g=None):
+        mask = torch.ones(a.shape[1], b.shape[1], dtype=torch.bool,
+                          device=a.device)
+        return _sdpa(a, b, c, mask, cfg)
+
+    if is_dtensor(q):
+        B, Sq, H, hd = q.shape
+        return reshape(gqa_on_local(
+            lambda a, b, c, g: core(a, b, c).reshape(a.shape), q, k, v),
+            B, Sq, H * hd)
+    return core(q, k, v)
 
 
 # --------------------------------------------------------------------- decode
@@ -201,6 +237,37 @@ def _valid_keys(cache_pos: torch.Tensor, T: int, window: int
     return valid
 
 
+def _write_at(cache: torch.Tensor, new: torch.Tensor,
+              pos: torch.Tensor) -> None:
+    """``cache[b, pos[b]] = new[b, 0]`` for every row b, in place, with
+    ``pos`` clamped to [0, T-1] (as the reference's
+    ``dynamic_update_slice`` clamps).  cache [B, T, ...], new [B, 1, ...].
+    On a DTensor cache each rank writes into its own shard: ``new`` comes
+    in the cache's layout (its length-1 T dim whole), and a rank whose
+    shard of T does not hold ``pos[b]`` keeps its rows as they were."""
+    T = cache.shape[1]
+    at = pos.long().clamp(0, T - 1)
+    if not is_dtensor(cache):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, at] = new[:, 0].to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+
+    mesh, pl = cache.device_mesh, cache.placements
+    new_pl = tuple(Replicate() if q.is_shard() and q.dim == 1 else q
+                   for q in pl)
+    new_l = new.to(cache.dtype).redistribute(mesh, new_pl).to_local()
+    local = cache.to_local()
+    shape, offset = local_shape_and_offset(cache.shape, mesh, pl)
+    b0, t0 = offset[0], offset[1]
+    at = full(at)[b0:b0 + shape[0]] - t0
+    mine = (at >= 0) & (at < shape[1])
+    at = at.clamp(0, max(shape[1] - 1, 0))
+    rows = torch.arange(shape[0], device=local.device)
+    keep = mine.reshape(-1, *([1] * (local.dim() - 2)))
+    local[rows, at] = torch.where(keep, new_l[:, 0], local[rows, at])
+
+
 def decode_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_pos: torch.Tensor, window: int = 0):
@@ -210,17 +277,74 @@ def decode_attention(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     ``cache_pos`` clamped to [0, T-1] (as the reference's
     ``dynamic_update_slice`` clamps), and returns (out [B,1,D], k_cache,
     v_cache)."""
-    B = x.shape[0]
     T = k_cache.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, cache_pos[:, None])
-    rows = torch.arange(B, device=x.device)
-    at = cache_pos.long().clamp(0, T - 1)
-    k_cache[rows, at] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, at] = v_new[:, 0].to(v_cache.dtype)
+    _write_at(k_cache, k_new, cache_pos)
+    _write_at(v_cache, v_new, cache_pos)
     valid = _valid_keys(cache_pos, T, window)            # [B,T]
-    out = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), valid[:, None],
-                cfg)
-    return out @ p.wo.to(x.dtype), k_cache, v_cache
+    out = _decode_core(q, k_cache.to(q.dtype), v_cache.to(q.dtype), valid,
+                       cfg)
+    return linear(out, p.wo.to(x.dtype)), k_cache, v_cache
+
+
+def _decode_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """One-token attention over the cache: q [B, 1, H, hd], k, v [B, T,
+    Hkv, hd], valid [B, T] -> [B, 1, H * hd] (:func:`_sdpa`).  On a
+    DTensor cache it runs in the cache's own layout (the reference's
+    cache spec: batch over the DP axes, or T over 'data' for one long
+    sequence, and hd over 'model'), so no rank gathers the cache: each
+    rank takes the scores of its hd slice and its keys, the scores are
+    summed over the ranks that split hd, the softmax is taken across the
+    ranks that split T (their maxima and sums exchanged), and each rank
+    keeps its hd slice of the output."""
+    if not is_dtensor(k):
+        return _sdpa(q, k, v, valid[:, None], cfg)
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, pl = k.device_mesh, k.placements
+    B, _, H, hd = q.shape
+    T = k.shape[1]
+    q_pl = tuple(Replicate() if p.is_shard() and p.dim in (1, 2) else p
+                 for p in pl)
+    m_pl = tuple(p if p.is_shard() and p.dim < 2 else Replicate()
+                 for p in pl)
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl = k.redistribute(mesh, pl).to_local()
+    vl = v.redistribute(mesh, pl).to_local()
+    ml = valid.redistribute(mesh, m_pl).to_local()
+    hd_groups = [mesh.get_group(i) for i, p in enumerate(pl)
+                 if p.is_shard() and p.dim == 3]
+    t_groups = [mesh.get_group(i) for i, p in enumerate(pl)
+                if p.is_shard() and p.dim == 1]
+
+    def reduce(t, op, groups):
+        for g in groups:
+            t = fc.all_reduce(t, op, g)
+            t = t.wait() if hasattr(t, "wait") else t
+        return t
+
+    Bl, Tl, Hkv, hdl = kl.shape
+    G = H // Hkv
+    qg = ql.reshape(Bl, 1, Hkv, G, hdl)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kl)
+    scores = reduce(scores, "sum", hd_groups) \
+        / scalar_in(math.sqrt(hd), q.dtype)
+    if cfg.attn_softcap > 0:
+        scores = softcap(scores.float(), cfg.attn_softcap)
+    scores = scores.float().masked_fill(~ml[:, None, None, None], NEG_INF)
+    mx = reduce(scores.amax(dim=-1, keepdim=True), "max", t_groups)
+    e = torch.exp(scores - mx)
+    den = reduce(e.sum(dim=-1, keepdim=True), "sum", t_groups)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", (e / den).to(q.dtype), vl)
+    out = reduce(out, "sum", t_groups).reshape(Bl, 1, H, hdl)
+    o_pl = tuple(p if p.is_shard() and p.dim in (0, 3) else Replicate()
+                 for p in pl)
+    shape = (B, 1, H, hd)
+    out = DTensor.from_local(out.contiguous(), mesh, o_pl, run_check=False,
+                             shape=shape, stride=(H * hd, H * hd, hd, 1))
+    return reshape(out, B, 1, H * hd)
 
 
 def decode_attention_quant(p: Attention, x: torch.Tensor, cfg: ArchConfig,
@@ -233,19 +357,15 @@ def decode_attention_quant(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     (int8 times the bf16 scale, both in the compute dtype) for the
     attention.  Returns (out [B,1,D], k_cache, v_cache, k_scale,
     v_scale)."""
-    B = x.shape[0]
     T = k_cache.shape[1]
     q, k_new, v_new = _project_qkv(p, x, cfg, cache_pos[:, None])
     kq, ks_new = _quantize_row(k_new)                    # [B,1,H,hd],[B,1,H]
     vq, vs_new = _quantize_row(v_new)
-    rows = torch.arange(B, device=x.device)
-    at = cache_pos.long().clamp(0, T - 1)
-    k_cache[rows, at] = kq[:, 0]
-    v_cache[rows, at] = vq[:, 0]
-    k_scale[rows, at] = ks_new[:, 0]
-    v_scale[rows, at] = vs_new[:, 0]
+    for cache, new in ((k_cache, kq), (v_cache, vq), (k_scale, ks_new),
+                       (v_scale, vs_new)):
+        _write_at(cache, new, cache_pos)
     k = k_cache.to(q.dtype) * k_scale.to(q.dtype)[..., None]
     v = v_cache.to(q.dtype) * v_scale.to(q.dtype)[..., None]
     valid = _valid_keys(cache_pos, T, window)
-    out = _sdpa(q, k, v, valid[:, None], cfg)
-    return out @ p.wo.to(x.dtype), k_cache, v_cache, k_scale, v_scale
+    out = _decode_core(q, k, v, valid, cfg)
+    return linear(out, p.wo.to(x.dtype)), k_cache, v_cache, k_scale, v_scale

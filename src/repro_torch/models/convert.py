@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..distrib.sharding import full
 from ..kernels._cuda import resolve_device
 from ..optim.adamw import AdamWState
 from .encdec import EncDec
@@ -105,7 +106,7 @@ def cache_to_numpy(cache: Dict[str, Any]) -> Dict[str, Any]:
 def _numpy(t: torch.Tensor) -> np.ndarray:
     """A copy (a CPU tensor's ``numpy()`` would share its memory, and the
     train step updates parameters in place)."""
-    t = t.detach().cpu()
+    t = full(t.detach()).cpu()       # a DTensor whole (a gather)
     return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
 
 

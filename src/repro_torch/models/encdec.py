@@ -31,11 +31,12 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels._cuda import resolve_device
-from .attention import (LANES, Attention, _project_qkv, _sdpa, attention,
-                        decode_attention)
+from ..distrib.sharding import constrain, embedding, linear, reshape
+from .attention import (LANES, Attention, _project_qkv, attention,
+                        decode_attention, full_attention)
 from .common import (dense_init, dtype_of, embed_init, mask_vocab_pad,
                      padded_vocab, rms_norm, weight)
-from .lm import _remat, cross_entropy
+from .lm import _remat, _seq_gather, _seq_shard, cross_entropy
 from .mlp import MLP, mlp
 
 
@@ -122,24 +123,21 @@ def _cross_attention(p: Attention, x: torch.Tensor, enc: torch.Tensor,
     B, Sq, _ = x.shape
     Sk = enc.shape[1]
     hd = cfg.resolved_head_dim
-    q = (x @ p.wq.to(x.dtype)).reshape(B, Sq, cfg.num_heads, hd)
-    k = (enc @ p.wk.to(x.dtype)).reshape(B, Sk, cfg.num_kv_heads, hd)
-    v = (enc @ p.wv.to(x.dtype)).reshape(B, Sk, cfg.num_kv_heads, hd)
+    q = reshape(linear(x, p.wq.to(x.dtype)), B, Sq, cfg.num_heads, hd)
+    k = reshape(linear(enc, p.wk.to(x.dtype)), B, Sk, cfg.num_kv_heads, hd)
+    v = reshape(linear(enc, p.wv.to(x.dtype)), B, Sk, cfg.num_kv_heads, hd)
     if Sq > XCHUNK and Sq % XCHUNK == 0:
-        mask = torch.ones(XCHUNK, Sk, dtype=torch.bool, device=x.device)
-        out = torch.cat([_remat(_sdpa, q[:, c:c + XCHUNK], k, v, mask, cfg,
-                                on=torch.is_grad_enabled())
+        out = torch.cat([_remat(full_attention, q[:, c:c + XCHUNK], k, v,
+                                cfg, on=torch.is_grad_enabled())
                          for c in range(0, Sq, XCHUNK)], dim=1)
     else:
-        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=x.device)
-        out = _sdpa(q, k, v, mask, cfg)
-    return out @ p.wo.to(x.dtype)
+        out = full_attention(q, k, v, cfg)
+    return linear(out, p.wo.to(x.dtype))
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
-    B, S, _ = x.shape
-    return torch.arange(S, dtype=torch.int32,
-                        device=x.device)[None].expand(B, S)
+    """[1, S]: 0..S-1, broadcast over the batch."""
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
 
 
 def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ArchConfig,
@@ -147,9 +145,7 @@ def _enc_layer(lp: EncLayer, x: torch.Tensor, cfg: ArchConfig,
     h = rms_norm(x, lp.ln1, cfg.norm_eps)
     # bidirectional self-attention
     q, k, v = _project_qkv(lp.attn, h, cfg, positions)
-    S = x.shape[1]
-    mask = torch.ones(S, S, dtype=torch.bool, device=x.device)
-    x = x + _sdpa(q, k, v, mask, cfg) @ lp.attn.wo.to(x.dtype)
+    x = x + linear(full_attention(q, k, v, cfg), lp.attn.wo.to(x.dtype))
     h = rms_norm(x, lp.ln2, cfg.norm_eps)
     return x + mlp(lp.mlp, h)
 
@@ -172,26 +168,32 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig, *,
 def _dec_layer(lp: DecLayer, x: torch.Tensor, enc: torch.Tensor,
                cfg: ArchConfig, positions: torch.Tensor, lane: str
                ) -> torch.Tensor:
-    h = rms_norm(x, lp.ln1, cfg.norm_eps)
-    x = x + attention(lp.attn, h, cfg, positions, lane=lane)
-    h = rms_norm(x, lp.lnx, cfg.norm_eps)
-    x = x + _cross_attention(lp.xattn, h, enc, cfg)
-    h = rms_norm(x, lp.ln2, cfg.norm_eps)
-    return x + mlp(lp.mlp, h)
+    # the reference's sequence parallelism after each layer, with each
+    # branch scattered before its residual add (as in ``lm._block``)
+    x = _seq_shard(x)
+    h = _seq_gather(rms_norm(x, lp.ln1, cfg.norm_eps))
+    x = x + _seq_shard(attention(lp.attn, h, cfg, positions, lane=lane))
+    h = _seq_gather(rms_norm(x, lp.lnx, cfg.norm_eps))
+    x = x + _seq_shard(_cross_attention(lp.xattn, h, enc, cfg))
+    h = _seq_gather(rms_norm(x, lp.ln2, cfg.norm_eps))
+    return x + _seq_shard(mlp(lp.mlp, h))
 
 
 def _head_logits(params: EncDec, x: torch.Tensor, cfg: ArchConfig
                  ) -> torch.Tensor:
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    x = _seq_gather(rms_norm(x, params.final_norm, cfg.norm_eps))
     head = (params.embed.t() if cfg.tie_embeddings
             else params.lm_head).to(x.dtype)
-    return mask_vocab_pad(x @ head, cfg.vocab_size)
+    logits = constrain(linear(x, head), "dp", None, "model")
+    return mask_vocab_pad(logits, cfg.vocab_size)
 
 
 def _forward(params: EncDec, tokens: torch.Tensor, cfg: ArchConfig,
              frontend: torch.Tensor, lane: str) -> torch.Tensor:
     enc = encode(params, frontend, cfg, lane=lane)
-    x = params.embed[tokens.long()].to(dtype_of(cfg.dtype))
+    x = embedding(params.embed, tokens.long()).to(dtype_of(cfg.dtype))
+    # a vocab-split lookup is a partial sum: reduced here, whole
+    x = constrain(x, "dp", None, None)
     positions = _positions(x)
     remat = lane == "train" and cfg.remat
     for lp in params.dec_layers:
@@ -240,7 +242,8 @@ def decode_step(params: EncDec, tokens: torch.Tensor,
     """One decoder step with the cached encoder states.  tokens: [B, 1].
     Returns (logits [B, 1, Vp], cache); K/V rows and ``pos`` are updated
     in place."""
-    x = params.embed[tokens.long()].to(dtype_of(cfg.dtype))
+    x = constrain(embedding(params.embed, tokens.long())
+                  .to(dtype_of(cfg.dtype)), "dp", None, None)
     pos = cache["pos"]
     enc = cache["enc"].to(x.dtype)
     for i, lp in enumerate(params.dec_layers):

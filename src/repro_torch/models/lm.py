@@ -38,12 +38,14 @@ sLSTM are plain torch on both lanes (the reference has no Pallas kernel
 for them).
 
 The reference's ``jax.lax.scan`` over stacked layers has no counterpart
-here: the port runs eagerly.  Its sharding constraints are layouts only;
-the one layout change that runs is the MoE's: with an active mesh whose
-'model' axis has n > 1 ranks, ``moe.moe`` hands ``moe_ep`` this rank's
-sequence chunk and gathers the output over 'model' (the reference's
-``shard_map`` does the same); the rest of the block runs replicated over
-'model'.  An unknown family raises ``NotImplementedError``.
+here: the port runs eagerly.  Its sharding constraints are the port's
+``distrib.sharding.constrain`` at the same points (after the embedding,
+sequence parallelism after each block, the vocab-sharded logits): on
+DTensor parameters and inputs (``distrib.sharding.device_put``) they
+redistribute the activations, on plain tensors they do nothing.  With an
+active mesh whose 'model' axis has n > 1 ranks, ``moe.moe`` hands
+``moe_ep`` this rank's sequence chunk (the reference's ``shard_map``).
+An unknown family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,7 +56,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..distrib.sharding import active_mesh
+from ..distrib.sharding import (active_mesh, constrain, embedding,
+                                is_dtensor, linear, mesh_axes, on_local,
+                                tp_degree)
 from ..kernels._cuda import resolve_device
 from .attention import (LANES, Attention, attention, decode_attention,
                         decode_attention_quant, init_kv_cache)
@@ -217,25 +221,49 @@ def _block(p: Block, x: torch.Tensor, cfg: ArchConfig,
     ``mix(p.ssm, h)`` the hybrid family's SSM block, likewise.  ``mesh``
     is the active mesh in the forward (the MoE's dispatch) and ``None`` in
     decode (dense MoE, as the reference's decode)."""
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    x = _seq_shard(x)
+    h = _seq_gather(rms_norm(x, p.ln1, cfg.norm_eps))
     a = attend(p.attn, h)
     if cfg.family == "hybrid":
         a = 0.5 * (a + mix(p.ssm, h))    # hymba: parallel attn+SSM fusion
     if cfg.post_norms:
         a = rms_norm(a, p.pn1, cfg.norm_eps)
-    x = x + a
-    h = rms_norm(x, p.ln2, cfg.norm_eps)
+    x = x + _seq_shard(a)
+    h = _seq_gather(rms_norm(x, p.ln2, cfg.norm_eps))
     f = moe(p.moe, h, cfg, mesh=mesh) if cfg.family == "moe" \
         else mlp(p.mlp, h)
     if cfg.post_norms:
         f = rms_norm(f, p.pn2, cfg.norm_eps)
-    return x + f
+    return x + _seq_shard(f)
+
+
+def _seq_gather(h: torch.Tensor) -> torch.Tensor:
+    """A normed activation whole over the sequence for the projections
+    (the all-gather that XLA inserts after the reference's sequence
+    parallelism); a plain tensor as it is."""
+    return constrain(h, "dp", None, None)
+
+
+def _seq_shard(x: torch.Tensor) -> torch.Tensor:
+    """The reference's Megatron-style sequence parallelism: between blocks
+    the residual stream lives S-sharded over 'model' (with the
+    reference's threshold of 0 bytes, whenever S divides the TP degree
+    and the policy is not pure DP).  The block scatters each branch's
+    output into that layout before the residual add (the reduce-scatter
+    after a row-parallel projection), so both sides of every add share
+    one layout and the backward returns each gradient in the layout its
+    projection made."""
+    if tp_degree() == 1 or x.shape[1] % tp_degree():
+        return x
+    return constrain(x, "dp", "model", None)
 
 
 def _embed(params: LM, tokens: torch.Tensor, cfg: ArchConfig
            ) -> torch.Tensor:
     cdt = dtype_of(cfg.dtype)
-    x = params.embed[tokens.long()].to(cdt)
+    # a vocab-split lookup is a partial sum: reduced here, whole
+    x = constrain(embedding(params.embed, tokens.long()), "dp", None, None)
+    x = x.to(cdt)
     if cfg.embed_scale != 1.0:
         x = x * scalar_in(cfg.embed_scale, cdt)
     return x
@@ -290,18 +318,19 @@ def hidden_forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
     x = _embed(params, tokens, cfg)
     if cfg.family == "vlm" and frontend is not None:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
+    x = constrain(x, "dp", None, None)
     if cfg.family == "ssm":
         for grp in params.groups:
             for blk, ln in zip(grp.mlstm, grp.ln_m):
                 x = _remat(_mlstm_layer, blk, ln, x, cfg, lane, on=remat)
             x = _remat(_slstm_layer, grp.slstm, grp.ln_s, x, cfg, on=remat)
         return rms_norm(x, params.final_norm, cfg.norm_eps)
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
+    # [1, S]: every row's positions are 0..S-1 (broadcast over the batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None]
     for blk, w in zip(params.layers, layer_windows(cfg)):
         x = _remat(_dense_layer, blk, x, cfg, positions, w, lane, on=remat)
-    return rms_norm(x, params.final_norm, cfg.norm_eps)
+    return _seq_gather(rms_norm(x, params.final_norm, cfg.norm_eps))
 
 
 def _head(params: LM, cfg: ArchConfig, dtype: torch.dtype) -> torch.Tensor:
@@ -310,7 +339,8 @@ def _head(params: LM, cfg: ArchConfig, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _logits(params: LM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    logits = x @ _head(params, cfg, x.dtype)
+    logits = linear(x, _head(params, cfg, x.dtype))
+    logits = constrain(logits, "dp", None, "model")   # vocab-sharded logits
     if cfg.logit_softcap > 0:
         logits = softcap(logits.float(), cfg.logit_softcap)
     return mask_vocab_pad(logits, cfg.vocab_size)
@@ -327,10 +357,40 @@ def forward(params: LM, tokens: torch.Tensor, cfg: ArchConfig,
 # ---------------------------------------------------------------------- loss
 def _token_nll(logits: torch.Tensor, targets: torch.Tensor
                ) -> torch.Tensor:
-    """logsumexp minus the target's logit, per token, in f32."""
+    """logsumexp minus the target's logit, per token, in f32.  On DTensor
+    logits (vocab split over 'model') no rank gathers the logits, as in
+    the reference's vocab-sharding-friendly form: the max-shifted
+    logsumexp reduces over the split vocab, and each rank picks the
+    target's logit from its own vocab shard (a partial sum over
+    'model')."""
     logits = logits.float()
-    return torch.logsumexp(logits, dim=-1) \
-        - logits.gather(-1, targets.long()[..., None])[..., 0]
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1) \
+            - logits.gather(-1, targets.long()[..., None])[..., 0]
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = (logits - m).exp().sum(dim=-1).log() + m[..., 0]
+    split = tp_degree() != 1
+    tgt = on_local(_pick_target, (logits, targets.long()),
+                   (("dp", None, "model"), ("dp", None)), ("dp", None),
+                   targets.shape, out_partial=("model",) if split else ())
+    return lse - tgt
+
+
+def _pick_target(logits: torch.Tensor, targets: torch.Tensor
+                 ) -> torch.Tensor:
+    """This rank's part of each token's target logit: logits [b, s, V_loc]
+    hold vocab ids ``off .. off + V_loc - 1`` of the 'model' rank; a
+    target outside them gives 0 (a partial sum over 'model')."""
+    mesh = active_mesh()
+    V_loc = logits.shape[-1]
+    off = 0
+    if tp_degree() != 1 and mesh is not None \
+            and mesh_axes(mesh).get("model", 1) > 1:
+        off = mesh.get_local_rank("model") * V_loc
+    idx = targets - off
+    mine = (idx >= 0) & (idx < V_loc)
+    got = logits.gather(-1, idx.clamp(0, V_loc - 1)[..., None])[..., 0]
+    return torch.where(mine, got, 0.0)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
@@ -343,7 +403,7 @@ CE_CHUNK = 512
 
 def _ce_chunk_sum(xc: torch.Tensor, head: torch.Tensor, tc: torch.Tensor,
                   cap: float, vocab: int) -> torch.Tensor:
-    logits = (xc @ head).float()
+    logits = constrain(linear(xc, head), "dp", None, "model").float()
     if cap > 0:
         logits = softcap(logits, cap)
     return _token_nll(mask_vocab_pad(logits, vocab), tc).sum()

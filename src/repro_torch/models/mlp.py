@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..distrib.sharding import linear
 from .common import dense_init, silu, weight
 
 
@@ -31,5 +32,5 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    h = silu(x @ p.w_gate.to(x.dtype)) * (x @ p.w_up.to(x.dtype))
-    return h @ p.w_down.to(x.dtype)
+    h = silu(linear(x, p.w_gate.to(x.dtype))) * (linear(x, p.w_up.to(x.dtype)))
+    return linear(h, p.w_down.to(x.dtype))

@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig, MoEConfig
-from ..distrib.sharding import mesh_axes
+from ..distrib.sharding import is_dtensor, mesh_axes, on_local
 from .common import dense_init, silu, weight
 from .mlp import MLP, mlp
 
@@ -282,8 +282,8 @@ def _expert_weights(p: MoE, E_local: int, r: int, group):
 
 
 def moe_ep(p: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
-           expert_axis: str = "model", capacity_factor: float = 1.25
-           ) -> torch.Tensor:
+           expert_axis: str = "model", capacity_factor: float = 1.25,
+           sum_replicated_grads: bool = True) -> torch.Tensor:
     """Expert-parallel MoE with PER-EXPERT capacity buffers.
 
     ``x`` is this rank's token shard [b, s_loc, D]: batch over the DP
@@ -305,7 +305,9 @@ def moe_ep(p: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
     capacity contributes zero.  The shared MLP is not added here:
     :func:`moe` adds it on the whole input.  Runs under autograd: the
     all-to-alls carry gradients, and the gradients of the replicated
-    router and of a whole expert stack are summed over ``expert_axis``.
+    router and of a whole expert stack are summed over ``expert_axis``
+    (unless ``sum_replicated_grads`` is false: on DTensor parameters the
+    caller's layout sums them, ``distrib.sharding.on_local``).
     """
     mo = cfg.moe
     n = mesh_axes(mesh)[expert_axis]
@@ -316,7 +318,8 @@ def moe_ep(p: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
     group = mesh.get_group(expert_axis)
     w_gate, w_up, w_down = _expert_weights(
         p, E_local, mesh.get_local_rank(expert_axis), group)
-    router = _SumGrad.apply(p.router, group) if n > 1 else p.router
+    router = _SumGrad.apply(p.router, group) \
+        if n > 1 and sum_replicated_grads else p.router
 
     b, s_loc, D = x.shape
     T, K = b * s_loc, mo.top_k
@@ -377,6 +380,29 @@ def moe_ep(p: MoE, x: torch.Tensor, cfg: ArchConfig, mesh,
     return out.reshape(b, s_loc, D)
 
 
+def _moe_ep_dtensor(p: MoE, x: torch.Tensor, cfg: ArchConfig, mesh
+                    ) -> torch.Tensor:
+    """:func:`moe_ep` on DTensors: ``x`` [B, S, D] redistributed to the
+    token shards (batch over the DP axes, sequence over 'model'), the
+    router whole and each expert stack split over 'model' (this rank's
+    experts, gathered over 'data' where FSDP splits them).  The router's and the experts'
+    gradients come back as partial sums that DTensor reduces into their
+    own layouts (``on_local``), so ``moe_ep`` sums none itself.  The
+    output comes back in ``x``'s layout."""
+    import types
+
+    def local(xl, router, w_gate, w_up, w_down):
+        q = types.SimpleNamespace(router=router, w_gate=w_gate, w_up=w_up,
+                                  w_down=w_down)
+        return moe_ep(q, xl, cfg, mesh, sum_replicated_grads=False)
+
+    tokens = ("dp", "model", None)
+    experts = ("model", None, None)
+    return on_local(local, (x, p.router, p.w_gate, p.w_up, p.w_down),
+                    (tokens, (None, None), experts, experts, experts),
+                    tokens, x.shape, out_like=x)
+
+
 def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, mesh=None
         ) -> torch.Tensor:
     """The reference's dispatcher: :func:`moe_ep` iff ``impl == "ep"``
@@ -387,7 +413,9 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, mesh=None
     whole input, outside ``moe_ep``, as in the reference."""
     if cfg.moe.impl != "ep" or mesh is None:
         return moe_dense(p, x, cfg)
-    if mesh_axes(mesh)["model"] == 1:
+    if is_dtensor(x):
+        out = _moe_ep_dtensor(p, x, cfg, mesh)
+    elif mesh_axes(mesh)["model"] == 1:
         out = moe_ep(p, x, cfg, mesh)
     else:
         out = seq_gather(moe_ep(p, seq_split(x, mesh), cfg, mesh), mesh)

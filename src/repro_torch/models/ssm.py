@@ -31,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig, SSMConfig
+from ..distrib.sharding import (HEAD_DIMS, is_dtensor, linear, on_local,
+                                reshape)
 from ..kernels._cuda import resolve_device
 from .common import dense_init, silu, weight
 
@@ -79,7 +81,12 @@ class SSM(nn.Module):
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [B, S, D]; w: [K, D] depthwise causal conv, summed tap by tap in
-    the reference's order."""
+    the reference's order.  On DTensors each rank convolves its own rows
+    and channels (the sequence whole)."""
+    if is_dtensor(x):
+        dims = ("dp", None, "model")
+        return on_local(_causal_conv, (x, w), (dims, (None, "model")), dims,
+                        x.shape)
     K = w.shape[0]
     pad = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
@@ -153,21 +160,29 @@ def _dims(cfg: ArchConfig):
 def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence SSM block. x: [B, S, d_model] -> [B, S, d_model]."""
     d_inner, H, P, N = _dims(cfg)
-    xz = x @ p.w_in.to(x.dtype)
+    xz = linear(x, p.w_in.to(x.dtype))
     u, z = xz.chunk(2, dim=-1)
     u = silu(_causal_conv(u, p.conv_w.to(x.dtype)))
-    bc = u @ p.w_bc.to(x.dtype)
+    bc = linear(u, p.w_bc.to(x.dtype))
     B = bc[..., :N].float()
     C = bc[..., N:].float()
-    dt = F.softplus((u @ p.w_dt.to(x.dtype)).float()
+    dt = F.softplus((linear(u, p.w_dt.to(x.dtype))).float()
                     + p.dt_bias[None, None])                   # [B,S,H]
     a = -torch.exp(p.a_log)                                    # [H] < 0
-    uh = u.reshape(*u.shape[:-1], H, P).float()
-    y = ssd_scan(uh, dt, a, B, C, cfg.ssm.chunk)
-    y = y.reshape(*x.shape[:-1], d_inner).to(x.dtype)
+    uh = reshape(u, *u.shape[:-1], H, P).float()
+    if is_dtensor(uh):
+        # per head: each rank scans its own heads (B and C are shared)
+        rows = ("dp", None, None)
+        y = on_local(lambda *t: ssd_scan(*t, cfg.ssm.chunk),
+                     (uh, dt, a, B, C),
+                     (HEAD_DIMS, HEAD_DIMS[:3], ("model",), rows, rows),
+                     HEAD_DIMS, uh.shape)
+    else:
+        y = ssd_scan(uh, dt, a, B, C, cfg.ssm.chunk)
+    y = reshape(y, *x.shape[:-1], d_inner).to(x.dtype)
     y = y + u * p.d_skip.to(x.dtype)[None, None]
     y = y * silu(z)
-    return y @ p.w_out.to(x.dtype)
+    return linear(y, p.w_out.to(x.dtype))
 
 
 # ----------------------------------------------------------------- decode step
@@ -191,25 +206,25 @@ def ssm_decode_step(p: SSM, x: torch.Tensor, cfg: ArchConfig,
     [B,K-1,d_inner] bf16, both updated in place.  Returns (y [B,1,d],
     state, conv_buf)."""
     d_inner, H, P, N = _dims(cfg)
-    xz = x @ p.w_in.to(x.dtype)
+    xz = linear(x, p.w_in.to(x.dtype))
     u, z = xz.chunk(2, dim=-1)                                 # [B,1,d_inner]
     window = torch.cat([conv_buf.to(u.dtype), u], dim=1)
     u_c = silu(torch.einsum("bkd,kd->bd", window,
                             p.conv_w.to(u.dtype)))[:, None, :]
     conv_buf.copy_(window[:, 1:, :])                           # rounds to bf16
-    bc = u_c @ p.w_bc.to(x.dtype)
+    bc = linear(u_c, p.w_bc.to(x.dtype))
     B = bc[:, 0, :N].float()                                   # [B,N]
     C = bc[:, 0, N:].float()
-    dt = F.softplus((u_c @ p.w_dt.to(x.dtype)).float()
+    dt = F.softplus((linear(u_c, p.w_dt.to(x.dtype))).float()
                     + p.dt_bias[None, None])[:, 0]             # [B,H]
     a = -torch.exp(p.a_log)
     dec = torch.exp(dt * a[None])                              # [B,H]
-    uh = u_c[:, 0].reshape(-1, H, P).float()                   # [B,H,P]
+    uh = reshape(u_c[:, 0], -1, H, P).float()                   # [B,H,P]
     du = dt[..., None] * uh
     state.mul_(dec[:, None, :, None]).add_(
         B[:, :, None, None] * du[:, None])
     y = torch.einsum("bk,bkhp->bhp", C, state)                 # [B,H,P]
-    y = y.reshape(-1, 1, d_inner).to(x.dtype)
+    y = reshape(y, -1, 1, d_inner).to(x.dtype)
     y = y + u_c * p.d_skip.to(x.dtype)[None, None]
     y = y * silu(z)
-    return y @ p.w_out.to(x.dtype), state, conv_buf
+    return linear(y, p.w_out.to(x.dtype)), state, conv_buf

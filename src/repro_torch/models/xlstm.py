@@ -30,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..distrib.sharding import (HEAD_DIMS, is_dtensor, linear, on_local,
+                                pointwise, reshape)
 from ..kernels._cuda import resolve_device
 from ..kernels.mlstm_chunk import ops as mc_ops
 from .common import dense_init, silu, weight
@@ -83,15 +85,15 @@ def mlstm_forward(p: MLSTM, x: torch.Tensor, cfg: ArchConfig,
     ``use_pallas=False``."""
     d_inner, H, P = mlstm_dims(cfg)
     B, S, _ = x.shape
-    xz = x @ p.w_in.to(x.dtype)
+    xz = linear(x, p.w_in.to(x.dtype))
     u, z = xz.chunk(2, dim=-1)
     u = silu(_causal_conv(u, p.conv_w.to(x.dtype)))
-    q = (u @ p.w_q.to(x.dtype)).reshape(B, S, H, P)
-    k = (u @ p.w_k.to(x.dtype)).reshape(B, S, H, P)
-    v = u.reshape(B, S, H, P)
-    gif = (u @ p.w_if.to(x.dtype)).float() + p.if_bias
+    q = reshape(linear(u, p.w_q.to(x.dtype)), B, S, H, P)
+    k = reshape(linear(u, p.w_k.to(x.dtype)), B, S, H, P)
+    v = reshape(u, B, S, H, P)
+    gif = (linear(u, p.w_if.to(x.dtype))).float() + p.if_bias
     ig = torch.sigmoid(gif[..., :H])                           # [B,S,H]
-    la = F.logsigmoid(gif[..., H:])                            # log f <= 0
+    la = pointwise(F.logsigmoid, gif[..., H:])                 # log f <= 0
     # the normaliser: the same recurrence with a ones column appended to v,
     # so the kernel's value width is Pv = P + 1 (1025 at xlstm-1.3b)
     vv = torch.cat([v.float(), v.new_ones(B, S, H, 1, dtype=torch.float32)],
@@ -100,18 +102,25 @@ def mlstm_forward(p: MLSTM, x: torch.Tensor, cfg: ArchConfig,
     # the carried state, f32, whatever cfg.use_pallas says: in the kernel
     # lane the device decides between the kernel and its plain version
     if lane == "kernel":
-        num_den = mc_ops.mlstm_chunk(q.float() * _inv_sqrt(P), k.float(),
-                                     vv, ig, la, chunk=cfg.xlstm.chunk)
+        def core(*a):
+            return mc_ops.mlstm_chunk(*a, chunk=cfg.xlstm.chunk)
     elif lane == "train":
-        num_den = _ssd_scan_perhead(q.float() * _inv_sqrt(P), k.float(), vv,
-                                    ig, la, cfg.xlstm.chunk)
+        def core(*a):
+            return _ssd_scan_perhead(*a, cfg.xlstm.chunk)
     else:
         raise ValueError(f"lane must be 'kernel' or 'train', got {lane!r}")
+    args = (q.float() * _inv_sqrt(P), k.float(), vv, ig, la)
+    if is_dtensor(q):
+        # each rank's own heads, on plain tensors
+        num_den = on_local(core, args, (HEAD_DIMS,) * 3
+                           + (HEAD_DIMS[:3],) * 2, HEAD_DIMS, vv.shape)
+    else:
+        num_den = core(*args)
     num, den = num_den[..., :P], num_den[..., P:]
     y = num / torch.clamp(den.abs(), min=1.0)
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = reshape(y, B, S, d_inner).to(x.dtype)
     y = y * silu(z)
-    return y @ p.w_out.to(x.dtype)
+    return linear(y, p.w_out.to(x.dtype))
 
 
 def _ssd_scan_perhead(q, k, v, ig, la, chunk: int) -> torch.Tensor:
@@ -175,16 +184,16 @@ def mlstm_decode_step(p: MLSTM, x: torch.Tensor, cfg: ArchConfig,
     """x: [B,1,d]; state: [B,H,P,P+1] f32; conv_buf: [B,K-1,d_inner] bf16.
     Both are updated in place and returned: (y [B,1,d], state, conv_buf)."""
     d_inner, H, P = mlstm_dims(cfg)
-    xz = x @ p.w_in.to(x.dtype)
+    xz = linear(x, p.w_in.to(x.dtype))
     u, z = xz.chunk(2, dim=-1)
     window = torch.cat([conv_buf.to(u.dtype), u], dim=1)       # [B,K,d_inner]
     u_c = silu(torch.einsum("bkd,kd->bd", window,
                             p.conv_w.to(u.dtype)))[:, None, :]
     conv_buf.copy_(window[:, 1:, :])                           # rounds to bf16
-    q = (u_c @ p.w_q.to(x.dtype)).reshape(-1, H, P).float()
-    k = (u_c @ p.w_k.to(x.dtype)).reshape(-1, H, P).float()
-    v = u_c.reshape(-1, H, P).float()
-    gif = (u_c @ p.w_if.to(x.dtype)).float()[:, 0] + p.if_bias
+    q = reshape(linear(u_c, p.w_q.to(x.dtype)), -1, H, P).float()
+    k = reshape(linear(u_c, p.w_k.to(x.dtype)), -1, H, P).float()
+    v = reshape(u_c, -1, H, P).float()
+    gif = (linear(u_c, p.w_if.to(x.dtype))).float()[:, 0] + p.if_bias
     ig = torch.sigmoid(gif[..., :H])
     fg = torch.sigmoid(gif[..., H:])
     vv = torch.cat([v, v.new_ones(v.shape[0], H, 1)], dim=-1)
@@ -193,9 +202,9 @@ def mlstm_decode_step(p: MLSTM, x: torch.Tensor, cfg: ArchConfig,
     out = torch.einsum("bhp,bhpw->bhw", q * _inv_sqrt(P), state)
     num, den = out[..., :P], out[..., P:]
     y = num / torch.clamp(den.abs(), min=1.0)
-    y = y.reshape(-1, 1, d_inner).to(x.dtype)
+    y = reshape(y, -1, 1, d_inner).to(x.dtype)
     y = y * silu(z)
-    return y @ p.w_out.to(x.dtype), state, conv_buf
+    return linear(y, p.w_out.to(x.dtype)), state, conv_buf
 
 
 # ---------------------------------------------------------------------- sLSTM
@@ -240,17 +249,33 @@ def slstm_forward(p: SLSTM, x: torch.Tensor, cfg: ArchConfig
     B, S, d = x.shape
     H = cfg.num_heads
     P = d // H
-    wx = (x @ p.w_gates.to(x.dtype)).float() + p.b_gates       # [B,S,4d]
-    wx = wx.reshape(B, S, H, 4 * P)
+    wx = linear(x, p.w_gates.to(x.dtype)).float() + p.b_gates   # [B,S,4d]
+    wx = reshape(wx, B, S, H, 4 * P)
     r = p.r_gates.float()                                      # once a call
-    h, c, n = (torch.zeros(B, H, P, device=x.device) for _ in range(3))
+    if is_dtensor(wx):
+        # the recurrence is per head: each rank loops over its own heads
+        hs = on_local(_slstm_scan, (wx, r), (HEAD_DIMS, ("model", None,
+                                                         None)),
+                      HEAD_DIMS, (B, S, H, P))
+    else:
+        hs = _slstm_scan(wx, r)
+    y = reshape(hs, B, S, d).to(x.dtype)
+    return linear(y, p.w_out.to(x.dtype))
+
+
+def _slstm_scan(wx: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The sLSTM's time loop: wx [B, S, H, 4P] f32 input gates, r [H, P,
+    4P] the block-diagonal recurrence -> h [B, S, H, P].  (The dry run,
+    ``launch.dryrun``, stands one counted step in for this loop.)"""
+    B, S, H, P4 = wx.shape
+    P = P4 // 4
+    h, c, n = (wx.new_zeros(B, H, P) for _ in range(3))
     hs = []
     for t in range(S):
         rec = torch.einsum("bhp,hpq->bhq", h, r)
         h, c, n = _slstm_cell(wx[:, t] + rec, c, n, P)
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    return y @ p.w_out.to(x.dtype)
+    return torch.stack(hs, dim=1)
 
 
 def init_slstm_cache(cfg: ArchConfig, batch: int, n_slstm: int, *,
@@ -271,11 +296,11 @@ def slstm_decode_step(p: SLSTM, x: torch.Tensor, cfg: ArchConfig,
     B, _, d = x.shape
     H = cfg.num_heads
     P = d // H
-    wx = (x @ p.w_gates.to(x.dtype)).float()[:, 0] + p.b_gates
+    wx = (linear(x, p.w_gates.to(x.dtype))).float()[:, 0] + p.b_gates
     rec = torch.einsum("bhp,hpq->bhq", h, p.r_gates.float())
-    h2, c2, n2 = _slstm_cell(wx.reshape(B, H, 4 * P) + rec, c, n, P)
+    h2, c2, n2 = _slstm_cell(reshape(wx, B, H, 4 * P) + rec, c, n, P)
     h.copy_(h2)
     c.copy_(c2)
     n.copy_(n2)
-    y = h.reshape(B, 1, d).to(x.dtype)
-    return y @ p.w_out.to(x.dtype), h, c, n
+    y = reshape(h, B, 1, d).to(x.dtype)
+    return linear(y, p.w_out.to(x.dtype)), h, c, n

@@ -18,8 +18,8 @@ The OmniSim engine then gives, *for free*:
     DSE sweeps depths in microseconds instead of re-simulating each point,
   * bubble-fraction accounting from the simulation graph.
 
-Tick costs come from the dry-run roofline terms (the reference's
-launch/roofline.py, not ported yet):
+Tick costs come from the dry-run roofline terms (the port's
+``launch/dryrun.py`` records, priced by ``launch/roofline.py``):
 per-stage forward/backward compute ticks and inter-stage P2P ticks.
 """
 from __future__ import annotations

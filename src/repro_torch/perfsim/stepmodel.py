@@ -1,8 +1,10 @@
 """Bridge: dry-run roofline records -> pipeline dataflow specs.
 
 The PyTorch port's copy of ``repro.perfsim.stepmodel``: it reads the
-dry-run JSON records that the reference's ``launch/dryrun.py`` writes
-(the port has no dry run yet), so it needs neither JAX nor a card.
+dry-run JSON records that the port's own ``launch/dryrun.py`` writes
+(``python -m repro_torch.launch.dryrun``, default ``--out
+reports/dryrun``; the reference's records have the same keys but
+``memory.fits_16gb_hbm``), so it needs neither JAX nor a card.
 
 Takes the per-cell roofline terms produced by ``launch/dryrun.py`` and
 derives tick costs for a hypothetical pipeline-parallel deployment of the

@@ -17,6 +17,14 @@ during warm-up), and the update overwrites the module's parameters and
 the AdamW moments in place, leaf by leaf (``optim.adamw.adamw_update_``),
 as the reference's launcher donates both.
 
+On DTensor parameters and batches (``distrib.sharding.device_put``, as
+``launch.train`` and ``launch.dryrun`` place them) the same steps run
+sharded: DTensor reduces the gradients over the DP axes and the TP
+splits, :func:`constrain_like_params` brings each gradient to its
+parameter's placements, the global-norm clip sums every shard once, and
+the update runs in place on each rank's shards.  The metrics come back as
+plain tensors.
+
 ``make_prefill_step`` runs the whole prompt through the full-sequence
 forward (on the card: the flash-attention kernel once per attention
 layer, decoder layers for the encoder-decoder; the chunked-mLSTM kernel
@@ -35,7 +43,9 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..distrib.sharding import active_mesh, dp_axes, mesh_axes
+from ..distrib.sharding import (active_mesh, constrain, dp_axes, full,
+                                is_dtensor, mesh_axes, param_specs,
+                                placements, replicated_context)
 from ..models import api
 from ..models.common import cast_params
 from ..models.convert import by_reference_leaf
@@ -45,11 +55,22 @@ from ..optim.compression import compress, decompress, init_residuals
 from ..optim.schedules import cosine_schedule, wsd_schedule
 
 
-def constrain_like_params(tree):
+def constrain_like_params(tree, params=None):
     """The reference pins grads and moments to the parameter shardings of
-    its active mesh; on one device there is none, so the tree comes back
-    unchanged (as the reference's does with no mesh)."""
-    return tree
+    its active mesh: a tree of DTensors (keyed by parameter name) is
+    redistributed to the placements of the parameter of the same name in
+    ``params`` (or, without it, of :func:`param_specs`); a partial sum
+    over the DP axes is reduced into its shards here.  A tree of plain
+    tensors comes back unchanged (as the reference's does with no
+    mesh)."""
+    if not any(is_dtensor(g) for g in tree.values()):
+        return tree
+    if params is None:
+        specs = param_specs(tree)
+        return {n: g.redistribute(g.device_mesh, placements(
+            g.device_mesh, specs[n])) for n, g in tree.items()}
+    return {n: g.redistribute(g.device_mesh, params[n].placements)
+            for n, g in tree.items()}
 
 
 def reduce_gradients(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
@@ -57,7 +78,12 @@ def reduce_gradients(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
     """Average ``grads`` (in place) and ``loss`` over the mesh's DP axes;
     returns the loss.  Nothing happens on a mesh of one DP rank or with no
     mesh.  The MoE sums its own replicated weights' gradients over 'model'
-    in its backward (``models.moe``)."""
+    in its backward (``models.moe``).  DTensor gradients are left alone:
+    DTensor has reduced them already, or holds them as partial sums that
+    :func:`constrain_like_params` reduces, so none is reduced twice; the
+    loss then comes back whole."""
+    if any(is_dtensor(g) for g in grads.values()):
+        return full(loss.detach())
     if mesh is None:
         return loss
     import torch.distributed as dist
@@ -127,6 +153,10 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 10_000,
         Returns (params, opt_state, metrics) with 0-dim tensors ``loss``,
         ``grad_norm`` and ``lr``."""
         named = dict(params.named_parameters())
+        with replicated_context(*named.values()):
+            return _train_step(params, named, opt_state, batch)
+
+    def _train_step(params, named, opt_state, batch):
         with torch.enable_grad():
             # bf16 copies made once at step entry, f32 masters kept for
             # the optimizer (the reference's cast_bf16)
@@ -140,11 +170,12 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 10_000,
         loss_val = reduce_gradients(grads, loss_val, active_mesh())
         if grad_compression:
             grads = _compress_roundtrip(grads)
-        grads = constrain_like_params(grads)
+        grads = constrain_like_params(grads, named)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         lr = lr_for(cfg, opt_state.step, total_steps, peak_lr)
         opt_state = adamw_update_(grads, opt_state, named, lr)
-        metrics = {"loss": loss_val.detach(), "grad_norm": gnorm, "lr": lr}
+        metrics = {"loss": full(loss_val.detach()), "grad_norm": full(gnorm),
+                   "lr": full(lr)}
         return params, opt_state, metrics
 
     return train_step
@@ -152,19 +183,24 @@ def make_train_step(cfg: ArchConfig, total_steps: int = 10_000,
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params, batch: Dict[str, Any]) -> torch.Tensor:
-        logits = api.forward(params, batch["tokens"], cfg,
-                             _frontend(batch, params.device))
-        # serving returns only the last position's logits
-        return logits[:, -1, :]
+        with replicated_context(batch["tokens"]):
+            logits = api.forward(params, batch["tokens"], cfg,
+                                 _frontend(batch, params.device))
+            # serving returns only the last position's logits
+            return logits[:, -1, :]
 
     return prefill_step
 
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
     def decode_step(params, tokens, cache):
-        logits, cache = api.decode_step(params, tokens, cache, cfg)
-        next_token = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
-        return next_token.to(torch.int32), cache
+        with replicated_context(tokens):
+            logits, cache = api.decode_step(params, tokens, cache, cfg)
+            # the vocab whole on each rank for the argmax (a no-op on
+            # plain tensors)
+            last = constrain(logits[:, -1, :], "dp", None)
+            next_token = torch.argmax(last, dim=-1)[:, None]
+            return next_token.to(torch.int32), cache
 
     return decode_step
 
