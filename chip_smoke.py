@@ -318,14 +318,30 @@ Phases, each printing its own line:
      copies, as ``launch.train``, against the plain parameters' (step
      1's loss within 1e-5, the grad norms at steps 1 and 3 within 1e-3
      relative, the loss's move over the two updates within 1 %; a
-     control lane on the rows reversed shows the step's rounding spread;
-     step times beside each other and beside 21 (a)'s), and a prefill
+     control lane on the rows reversed shows the step's rounding spread,
+     and step 1's grad norm must be within 10x the control's difference
+     (or 1e-6); each leaf's first moment after step 1 against the plain
+     lane's, printed; step times beside each other and beside 21 (a)'s),
+     and a prefill
      whose flash launches
      (counts zeroed just before, read just after) must be 30; (d) with
      four cards, qwen2.5-14b trained under FSDP over 'data' by
      ``torchrun --nproc_per_node 4 -m repro_torch.launch.train``; with
      one card it prints that it was skipped and why.  (c) and (d) run
-     first, (a) and (b) last, with the card idle.
+     first, (a) and (b) last, with the card idle;
+  25. the four examples of ``examples_torch/``, as a user runs them: (a)
+     ``fifo_sizing_dse.py`` in this process (``runpy``) with ``--device
+     cpu`` and then ``--device cuda``, kernel 1's launch count zeroed just
+     before and read just after the card run (it must be > 0: the served
+     sweeps and the edit loop), and every number the two runs print that
+     depends neither on a clock nor on the service's thread timing
+     (``DSE_NUMBERS``) equal; the card run's wall time per act; (b)
+     ``pipeline_perfsim.py --records`` on phase 24 (a)'s pod records: it
+     must take the qwen2.5-14b train_4k record's tick costs; (c)
+     ``train_smollm.py`` at its 300 steps on the card, in a fresh
+     directory under ``.chipscratch/``: exit 0, the loss logged at step
+     300 below step 20's, steps/s; (d) ``quickstart.py``, whose own
+     assertion holds OmniSim to the RTL oracle.
      The run's total time is printed last.
 
 Float32 matrix products run in full float32 (``allow_tf32`` off), so the
@@ -560,6 +576,102 @@ def worker_sparse_launches(pause):
 
     time.sleep(pause)
     return os.getpid(), _cuda.SPARSE.launches
+
+
+class _StampedLines:
+    """A stdout stand-in that keeps each line with its host-clock offset
+    (seconds since it was made)."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.lines, self._part = [], ""
+
+    def write(self, text):
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        now = time.perf_counter() - self.t0
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def run_example(name, argv=()):
+    """``examples_torch/<name>`` in this process as ``__main__`` with
+    ``argv`` (``runpy``): [(seconds since the start, line)] of what it
+    printed.  An exception in the example propagates."""
+    import runpy
+
+    path = os.path.join(ROOT, "examples_torch", name)
+    out, saved = _StampedLines(), sys.argv
+    sys.argv = [path, *argv]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = saved
+    if out._part:
+        out.write("\n")
+    return out.lines
+
+
+# what fifo_sizing_dse.py prints that depends neither on a clock nor on
+# the service's thread timing (its block count and cache hit rate do):
+# key -> (pattern, whether it may match more than once)
+DSE_NUMBERS = {
+    "initial cycles": (r"^initial run: cycles=(\d+)", False),
+    "act 1 (depth, cycles, method)":
+        (r"^\s+(\d+)\s+(\d+)\s+(incremental|full-resim)\s", True),
+    "probe cycles": (r"depth-4 (\d+) / depth-16 (\d+) cycles", False),
+    "bulk (configs, unique, reused, fallback, best)":
+        (r"^bulk sweep: (\d+) configs \((\d+) unique\) in .*, (\d+) "
+         r"reused / (\d+) full re-sims; best cycles=(-?\d+)", False),
+    "random search": (r"^random search : (.*)$", False),
+    "successive halving": (r"^succ\. halving : (.*)$", False),
+    "pareto (area, cycles)": (r"^  area=\s*(\d+)\s+cycles=\s*(-?\d+)$",
+                              True),
+    "edit (mode, reused, total)":
+        (r"update\(\) -> (\w+), (\d+)/(\d+) module traces", False),
+    "median cycles (before, after)":
+        (r"median cycles (-?\d+) -> (-?\d+)", False),
+    "delta tiers (patched, rejected)":
+        (r"^delta tiers: (\d+) patched, (\d+) rejected", False),
+}
+# the line that ends each act of fifo_sizing_dse.py
+DSE_ACT_ENDS = (("1 one at a time", "all points verified"),
+                ("2 served sweep", "bulk sweep:"),
+                ("3 search drivers", "service stats:"),
+                ("4 edit loop", "delta tiers:"))
+
+
+def dse_numbers(lines):
+    """{key of DSE_NUMBERS: the values it matched} from fifo_sizing_dse's
+    printed lines; raises if a key matches no line (or a single key
+    more than one)."""
+    import re
+
+    got = {}
+    for key, (pattern, many) in DSE_NUMBERS.items():
+        hits = [m.groups() for m in (re.search(pattern, line)
+                                     for line in lines) if m]
+        if not hits or (len(hits) > 1 and not many):
+            raise AssertionError(f"fifo_sizing_dse output: {len(hits)} "
+                                 f"lines for {key!r}")
+        got[key] = hits if many else hits[0]
+    return got
+
+
+def act_walls(stamped):
+    """[(act, wall seconds)] of fifo_sizing_dse from its stamped lines:
+    each act from the end of the one before (act 1 from the start, the
+    initial simulation included) to the line that ends it."""
+    walls, t_prev = [], 0.0
+    for act, start in DSE_ACT_ENDS:
+        t = next(t for t, line in stamped if line.startswith(start))
+        walls.append((act, t - t_prev))
+        t_prev = t
+    return walls
 
 
 def main():
@@ -2172,9 +2284,11 @@ def main():
 
                 def three_steps(step, lanes):
                     """Three steps of each lane (name, params, batch) from
-                    fresh AdamW states: [(loss, grad norm)] a step, and
-                    the median time of steps 2 and 3."""
-                    seen, secs = {}, {}
+                    fresh AdamW states: [(loss, grad norm)] a step, the
+                    median time of steps 2 and 3, and each leaf's first
+                    moment after step 1 ((1 - b1) times the clipped
+                    gradient)."""
+                    seen, secs, mu1 = {}, {}, {}
                     for name, params, b in lanes:
                         opt = init_adamw(params)
                         seen[name], t = [], []
@@ -2189,8 +2303,13 @@ def main():
                             sync()
                             if i:
                                 t.append(time.perf_counter() - t0)
+                            else:
+                                mu1[name] = {
+                                    k: (v.full_tensor() if hasattr(
+                                        v, "full_tensor") else v).clone()
+                                    for k, v in opt.mu.items()}
                         secs[name] = statistics.median(t)
-                    return seen, secs
+                    return seen, secs, mu1
 
                 # bf16 copies of the weights, as launch.train, at a peak lr
                 # at which steps 2 and 3 (lr 1e-4 and 2e-4 in the warm-up;
@@ -2199,7 +2318,7 @@ def main():
                 # in exact arithmetic), shows the rounding spread of the
                 # step at this width: the lanes cannot agree closer.
                 ctrl = copy.deepcopy(plain)
-                got, times = three_steps(
+                got, times, mu1 = three_steps(
                     make_train_step(scfg, total_steps=10, peak_lr=1e-2),
                     (("plain", plain, batch), ("dtensor", sharded, dbatch),
                      ("control", ctrl, {k: v.flip(0).contiguous()
@@ -2217,6 +2336,19 @@ def main():
                             abs(g3 - h3) / h3,
                             abs((l3 - l1) - (p3 - p1)) / abs(p3 - p1))
 
+                def leaf_diffs(lane):
+                    """Each leaf's first moment after step 1 against the
+                    plain lane's: (leaves that differ, the largest
+                    |difference| over its leaf's largest |value|, that
+                    leaf's name)."""
+                    ref = mu1["plain"]
+                    rel = {k: float((v - ref[k]).abs().max()
+                                    / ref[k].abs().max().clamp_min(1e-30))
+                           for k, v in mu1[lane].items()}
+                    worst = max(rel, key=rel.get)
+                    return (sum(r > 0 for r in rel.values()), rel[worst],
+                            worst)
+
                 (p1, _), _, (p3, _) = got["plain"]
                 check(p1 - p3 >= 1e-2, f"two updates moved the loss by "
                       f"{p1 - p3:.3g} only")
@@ -2227,6 +2359,19 @@ def main():
                         "the loss's move over two updates (relative)")):
                     check(v <= lim, f"DTensor against plain: {what} "
                           f"differs by {v:.3g} (limit {lim:g})")
+                # the same step in two layouts: no further apart than ten
+                # times the same step on the rows reversed (autograd
+                # through a composite logsumexp parted them by 285x)
+                check(d_dt[1] <= max(10 * d_ctrl[1], 1e-6),
+                      f"DTensor against plain: step 1's grad norm differs "
+                      f"by {d_dt[1]:.3g}, the control's by {d_ctrl[1]:.3g}")
+                l_dt, l_ctrl = leaf_diffs("dtensor"), leaf_diffs("control")
+                log(f"  first moments after step 1, {len(mu1['plain'])} "
+                    f"leaves: DTensor against plain {l_dt[0]} differ, the "
+                    f"largest by {l_dt[1]:.3g} of its leaf ({l_dt[2]}); "
+                    f"the control {l_ctrl[0]} differ, the largest by "
+                    f"{l_ctrl[1]:.3g} ({l_ctrl[2]}) [{card}]")
+                del mu1
                 log(f"  train step B={B} S={S} (bf16 copies), three steps: "
                     f"plain loss {p1:.6f} -> {p3:.6f}; DTensor against "
                     f"plain: step 1's loss {d_dt[0]:.3g} (limit 1e-5), grad "
@@ -2360,6 +2505,101 @@ def main():
                     f"{roof['dominant']}: measured / dominant = "
                     f"{got / dom:.3f} [{card}]")
                 out[key + "_over_dominant"] = got / dom
+        return out
+
+    # ------------------------------------------------------------ 25
+    def example_phases():
+        """Phase 25: the four examples of ``examples_torch/`` on the card,
+        through the entry points a user runs: (a) fifo_sizing_dse on the
+        card (kernel 1 through the served sweeps and the edit loop,
+        counted) and on the CPU, their clock-free numbers equal; (b)
+        pipeline_perfsim on phase 24 (a)'s dry-run record of qwen2.5-14b
+        train_4k; (c) train_smollm's 300 steps; (d) quickstart.  Returns
+        what the kernel record takes from it."""
+        import re
+        import tempfile
+
+        out = {}
+        with phase("25 (a) examples_torch/fifo_sizing_dse.py on the card "
+                   "(counted) and on the CPU"):
+            on_cpu = run_example("fifo_sizing_dse.py", ["--device", "cpu"])
+            for lib in _cuda.LIBS:
+                lib.reset_counts()
+            t0 = time.perf_counter()
+            on_card = run_example("fifo_sizing_dse.py", ["--device", "cuda"])
+            took = time.perf_counter() - t0
+            launches = {lib.name: lib.launches for lib in _cuda.LIBS}
+            for _, line in on_card:
+                log(f"  | {line}")
+            check(launches["maxplus_sparse"] > 0,
+                  f"kernel 1 not launched: {launches}")
+            card_n = dse_numbers([line for _, line in on_card])
+            cpu_n = dse_numbers([line for _, line in on_cpu])
+            for key in DSE_NUMBERS:
+                check(card_n[key] == cpu_n[key], f"{key}: card "
+                      f"{card_n[key]} against the CPU's {cpu_n[key]}")
+            out["launches"] = launches["maxplus_sparse"]
+            walls = ", ".join(f"act {a} {w:.3f} s"
+                              for a, w in act_walls(on_card))
+            log(f"  card run {took:.3f} s ({walls}); CPU run "
+                f"{on_cpu[-1][0]:.3f} s; kernel 1 launched "
+                f"{launches['maxplus_sparse']} times (other kernels "
+                f"{sum(launches.values()) - launches['maxplus_sparse']}); "
+                f"{len(DSE_NUMBERS)} clock-free values equal on both "
+                f"[{card}]")
+        with phase("25 (b) examples_torch/pipeline_perfsim.py on phase 24 "
+                   "(a)'s dry-run record"):
+            records = os.path.join(ROOT, "reports", "chip_smoke_dryrun",
+                                   "pod")
+            rec = os.path.join(records, "qwen2.5-14b__train_4k__sp.json")
+            check(os.path.exists(rec), f"no dry-run record {rec}")
+            lines = run_example("pipeline_perfsim.py",
+                                ["--records", records])
+            for _, line in lines:
+                log(f"  | {line}")
+            check(lines[0][1].startswith(
+                "tick costs from qwen2.5-14b train_4k dry-run: "),
+                f"not the record's tick costs: {lines[0][1]!r}")
+            log(f"  {lines[-1][0]:.3f} s [{card}]")
+        with phase("25 (c) examples_torch/train_smollm.py, 300 steps"):
+            scratch = os.path.join(ROOT, ".chipscratch")
+            os.makedirs(scratch, exist_ok=True)
+            work = tempfile.mkdtemp(prefix="train_smollm_", dir=scratch)
+            env = dict(os.environ)
+            env["PYTHONPATH"] = os.path.join(ROOT, "src")
+            try:
+                t0 = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable,
+                     os.path.join(ROOT, "examples_torch", "train_smollm.py")],
+                    cwd=work, env=env, capture_output=True, text=True,
+                    timeout=600)
+                took = time.perf_counter() - t0
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            check(r.returncode == 0, f"exit {r.returncode}: "
+                  f"{r.stderr[-3000:]}")
+            losses = [(int(a), float(b)) for a, b in re.findall(
+                r"step\s+(\d+) loss=([-\d.]+)", r.stdout)]
+            done = re.search(r"done: (\d+) steps in ([\d.]+)s", r.stdout)
+            check(len(losses) == 15 and losses[-1][0] == 300 and done,
+                  f"logged steps {[i for i, _ in losses]}: {r.stdout[-2000:]}")
+            check(losses[-1][1] < losses[0][1],
+                  f"the loss did not fall: {losses}")
+            n, secs = int(done.group(1)), float(done.group(2))
+            log(f"  loss at step {losses[0][0]} {losses[0][1]:.4f}, at step "
+                f"{losses[-1][0]} {losses[-1][1]:.4f}; {n} steps in "
+                f"{secs:.1f} s by the launcher's clock, "
+                f"{n / max(secs, 1e-9):.1f} steps/s; the whole example "
+                f"{took:.3f} s [{card}]")
+            out["train_steps_per_s"] = n / max(secs, 1e-9)
+        with phase("25 (d) examples_torch/quickstart.py"):
+            lines = run_example("quickstart.py")   # asserts omni == rtl
+            check(any("== oracle exactly" in line for _, line in lines),
+                  "no oracle line")
+            for _, line in lines:
+                log(f"  | {line}")
+            log(f"  {lines[-1][0]:.3f} s [{card}]")
         return out
 
     # ---------------------------------------------------------------- 2
@@ -3778,7 +4018,7 @@ def main():
         """Kernel 1 alone on g's device arrays over the rows of D that can
         commit, held against its plain version: (CUDA-event ms a solve,
         rounds launched, rounds the fixpoint needs, bound ms, max abs
-        err, E, m, K)."""
+        err, E, m, K, the plain version's ms in one run)."""
         ba = dse._batch_arrays(g)
         Dc = D[~(D < ba.fifo_need[None, :]).any(axis=1)]
         arr = dse._sparse_arrays(ba, dev)
@@ -3787,13 +4027,15 @@ def main():
         got = {}
         ms = cuda_time(lambda: got.__setitem__(
             "k", sparse.solve_chains(arr, Dt)), 3)
-        plain = ref.solve_chains_ref(arr, Dt)
+        plain_ms = cuda_time(lambda: got.__setitem__(
+            "p", ref.solve_chains_ref(arr, Dt)), 1, warm_up=False)
+        plain = got["p"]
         err = same_solve(got["k"], plain)
         E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
         rounds, K = plain[2], Dt.shape[0]
         bound_ms = (4 * K * (2 * g.n + 2 * (E + m)) * rounds
                     / HBM_BYTES_PER_S * 1e3)
-        return ms, got["k"][2], rounds, bound_ms, err, E, m, K
+        return ms, got["k"][2], rounds, bound_ms, err, E, m, K, plain_ms
 
     def same_queries(a, b, what):
         check((a.stats.queries, a.stats.queries_forced_false,
@@ -3871,18 +4113,20 @@ def main():
                       "fig4_ex5: verdicts differ from phase 5's")
             per = {src: kernel1_alone(g, D)
                    for src, g in (("hybrid", g_h), ("generator", g_g))}
-            (ms_h, l_h, need, bnd, err, E, m, K) = per["hybrid"]
+            (ms_h, l_h, need, bnd, err, E, m, K, pl_h) = per["hybrid"]
             ms_g, l_g = per["generator"][:2]
             check(l_h == l_g and need == per["generator"][2],
                   f"{key}: kernel rounds differ {l_h} vs {l_g}")
-            k1_hybrid[key] = {"ms": ms_h, "bound_ms": bnd, "max_abs_err": err}
+            k1_hybrid[key] = {"ms": ms_h, "bound_ms": bnd, "max_abs_err": err,
+                              "plain_ms": pl_h}
             log(f"  {key} (n={g_h.n}, E={E}, m={m}, K={K} rows that can "
                 f"commit): kernel 1 per solve {ms_h:.3f} ms from the hybrid-"
                 f"built graph, {ms_g:.3f} ms from the generator-built "
                 f"({ms_h / ms_g:.3f}x); per round {1e3 * ms_h / l_h:.2f} "
                 f"against {1e3 * ms_g / l_g:.2f} us ({l_h} rounds launched, "
                 f"{need} needed); bound {bnd:.4f} ms, "
-                f"{1e3 * bnd / need:.2f} us a round; status, cycles, "
+                f"{1e3 * bnd / need:.2f} us a round; plain version "
+                f"{pl_h:.3f} ms (one run); status, cycles, "
                 f"violated bit-identical; kernel 1 launches "
                 f"{hybrid_launches[key]} [{card}]")
 
@@ -4141,13 +4385,14 @@ def main():
         per = {src: kernel1_alone(g, D18)
                for src, g in (("patched", g_p), ("cold", g_c))}
         peak = torch.cuda.max_memory_allocated() / 2**30 - held
-        (ms_p, l_p, need, bnd, err, E, m, K) = per["patched"]
+        (ms_p, l_p, need, bnd, err, E, m, K, pl_p) = per["patched"]
         ms_c, l_c, need_c = per["cold"][:3]
         check(l_p == l_c and need == need_c,
               f"kernel rounds differ: {l_p}/{need} vs {l_c}/{need_c}")
         k1_delta.update(shape=f"delay-patched corpus design (n={g_p.n}, "
                         f"E={E}, m={m}, K={K})", ms=ms_p, bound_ms=bnd,
-                        rounds=need, launched=l_p, max_abs_err=err)
+                        rounds=need, launched=l_p, max_abs_err=err,
+                        plain_ms=pl_p)
         log(f"  delay-patched design (n={g_p.n}, E={E}, m={m}, K={K}, "
             f"{len(d0)} FIFOs): served {s_srv:.3f} s at block 128 "
             f"({K / s_srv:.0f} configs/s; kernel 1 launches "
@@ -4157,7 +4402,8 @@ def main():
             f"the patched graph, {ms_c:.3f} ms from the cold-built "
             f"({ms_p / ms_c:.3f}x); {l_p} rounds launched, {need} needed; "
             f"bound {bnd:.4f} ms, {1e3 * bnd / need:.2f} us a round, "
-            f"{1e3 * ms_p / l_p:.2f} us a launched round; peak device "
+            f"{1e3 * ms_p / l_p:.2f} us a launched round; plain version "
+            f"{pl_p:.3f} ms (one run); peak device "
             f"memory above the {held:.3f} GiB held before: "
             f"{peak_path:.3f} GiB over the served and direct calls, "
             f"{peak:.3f} GiB with the plain versions' [n, K] arrays; "
@@ -4175,9 +4421,13 @@ def main():
     eps = ep_phases()
     train_launches["qwen3"] = eps.get("train_launches", {})
     dry = dry_phases()
+    t25 = time.perf_counter()
+    examples = example_phases()
+    log(f"phase 25 took {time.perf_counter() - t25:.1f} s")
 
     for k in kernels:
         if k["name"] == "maxplus_sparse_fixpoint":
+            k["launches_examples"] = examples.get("launches")
             k["launches_service"] = service_launches
             k["launches_trace_resolves"] = trace_launches
             k["launches_hybrid_resolves"] = hybrid_launches

@@ -552,12 +552,12 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``; on a DTensor table, the embedding lookup, gathered
+    """``table[ids]`` as the embedding lookup; a DTensor table is gathered
     over the FSDP axes only: DTensor looks rows up in a table split over
     'model' on each rank's own rows (a masked partial sum, reduced where
-    it is used)."""
-    if not is_dtensor(table):
-        return table[ids]
+    it is used).  Plain and DTensor tables take the same op, so their
+    gradients sum the tokens' rows in the same order (on the card
+    ``table[ids]``'s backward sums them otherwise)."""
     import torch.nn.functional as F
 
     return F.embedding(ids, gather_fsdp(table))

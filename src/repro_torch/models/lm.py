@@ -367,13 +367,36 @@ def _token_nll(logits: torch.Tensor, targets: torch.Tensor
     if not is_dtensor(logits):
         return torch.logsumexp(logits, dim=-1) \
             - logits.gather(-1, targets.long()[..., None])[..., 0]
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = (logits - m).exp().sum(dim=-1).log() + m[..., 0]
+    lse = _LogSumExp.apply(logits)
     split = tp_degree() != 1
     tgt = on_local(_pick_target, (logits, targets.long()),
                    (("dp", None, "model"), ("dp", None)), ("dp", None),
                    targets.shape, out_partial=("model",) if split else ())
     return lse - tgt
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp(x, -1)`` in ops a DTensor splits over the vocab:
+    the forward is the max-shifted sum of exponentials (the steps of
+    ``torch.logsumexp``), the backward ``grad * exp(x - lse)``, the
+    formula of its backward.  Autograd through the composite form would
+    take ``grad / sum * exp(x - max)`` instead, whose float32 rounding
+    differs from the plain lane's; under bf16 copies of the weights that
+    difference flips bf16 roundings in the logits' gradient and so in
+    every gradient before it.  With this backward the DTensor lane's
+    gradients at one rank are the plain lane's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        m = x.amax(dim=-1, keepdim=True)
+        lse = (x - m).exp().sum(dim=-1).log() + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        x, lse = ctx.saved_tensors
+        return grad[..., None] * (x - lse[..., None]).exp()
 
 
 def _pick_target(logits: torch.Tensor, targets: torch.Tensor

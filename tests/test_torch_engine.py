@@ -260,7 +260,13 @@ def _port_files():
                                                   "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
-    return files
+    return files + _port_examples()
+
+
+def _port_examples():
+    d = os.path.join(ROOT, "examples_torch")
+    return sorted(os.path.join(d, n) for n in os.listdir(d)
+                  if n.endswith(".py"))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -270,3 +276,19 @@ def test_port_imports_neither_jax_nor_the_reference():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_port_examples_spawn_no_reference_module():
+    """The string form the import scan misses: an example that runs
+    ``python -m repro.<module>`` in a subprocess (``train_smollm``
+    spawns ``-m repro_torch.launch.train``)."""
+    examples = _port_examples()
+    assert len(examples) == 4
+    for path in examples:
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value,
+                                                             str):
+                v = node.value.strip()
+                assert not (v in ("repro", "jax")
+                            or v.startswith(("repro.", "jax."))), (path, v)

@@ -33,6 +33,20 @@ Four gloo ranks in subprocesses (each one thread, meeting on a
   the prefill step's logits (flash and mLSTM dispatchers on each rank's
   own heads, here their plain versions) and three decode steps against a
   DTensor cache (each rank writing its own shard).
+
+In this process, on a gloo group of one (mesh (1, 1)), the launcher's
+train step with bf16 copies of the weights (``cast_bf16=True``): one step
+on DTensor parameters equals one on the plain parameters bit for bit
+(loss, grad norm, and every leaf's gradient, read from the first AdamW
+moment, ``(1 - b1)`` times the clipped gradient after one step), with the
+activations in float32 (the smoke config's) and in bfloat16 (the
+full-width config's).  A control lane, the plain parameters on the
+batch's rows reversed (the same step in exact arithmetic), gives the
+step's own rounding spread.  Autograd through the composite logsumexp
+that the DTensor lane used to take parted the lanes by bf16 roundings
+(on the card, its grad norm by 2.78e-4 relative against the control's
+9.7e-7); the case that restores it shows a leaf more than 10x the
+control's difference.
 """
 import json
 import os
@@ -41,6 +55,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 300
@@ -414,3 +429,124 @@ def test_launch_train_holds_dtensors_under_its_mesh(ranks):
         assert got["launch_embed"].all()
         assert bool(got["launch_mu_dtensor"])
         assert np.isfinite(got["launch_loss"]).all()
+
+
+# ------------------------------------- world 1: bf16 copies, DTensor vs plain
+WB, WS = 4, 64
+
+
+def _composite_logsumexp(x):
+    """The DTensor lane's former logsumexp: autograd through the
+    max-shifted composite (backward ``grad / sum * exp(x - max)``)."""
+    m = x.amax(dim=-1, keepdim=True).detach()
+    return (x - m).exp().sum(dim=-1).log() + m[..., 0]
+
+
+def _world1_step(dtype, lanes=("plain", "dtensor", "control"),
+                 logsumexp=None):
+    """One ``make_train_step(cast_bf16=True)`` step of smollm-135m
+    ``.smoke()`` (activations in ``dtype``) from one initial state in each
+    lane, on a gloo group of one and mesh (1, 1): {lane: (loss, grad norm,
+    {leaf: first moment})}.  ``logsumexp`` replaces the DTensor lane's
+    logsumexp when given."""
+    import copy
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distrib.sharding import (batch_spec, device_put,
+                                              param_specs, placements,
+                                              set_active_mesh,
+                                              shardings_for)
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.models import api, lm
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_arch("smollm-135m").smoke().replace(dtype=dtype)
+    started = init_process_group(torch.device("cpu"))
+    saved = lm._LogSumExp.apply
+    try:
+        mesh = make_host_mesh()
+        set_active_mesh(mesh)
+        if logsumexp is not None:
+            lm._LogSumExp.apply = logsumexp
+        plain = api.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+        toks = torch.from_numpy(np.random.default_rng(24).integers(
+            0, cfg.vocab_size, (WB, WS + 1)).astype(np.int32))
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "targets": toks[:, 1:].contiguous()}
+
+        def whole(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        def dtensor_batch():
+            return {k: DTensor.from_local(v, mesh, placements(
+                mesh, batch_spec(mesh, v.dim()))) for k, v in batch.items()}
+
+        make = {"plain": lambda: (copy.deepcopy(plain), batch),
+                "dtensor": lambda: (device_put(copy.deepcopy(plain),
+                                               shardings_for(
+                                                   mesh, param_specs(plain))),
+                                    dtensor_batch()),
+                "control": lambda: (copy.deepcopy(plain),
+                                    {k: v.flip(0).contiguous()
+                                     for k, v in batch.items()})}
+        step = make_train_step(cfg, total_steps=10, peak_lr=1e-2,
+                               cast_bf16=True)
+        got = {}
+        for lane in lanes:
+            params, b = make[lane]()
+            if lane == "dtensor":
+                assert all(isinstance(p.data, DTensor)
+                           for p in params.parameters())
+            _, opt, m = step(params, init_adamw(params), b)
+            got[lane] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: whole(v).detach().clone()
+                          for k, v in opt.mu.items()})
+        return got
+    finally:
+        lm._LogSumExp.apply = saved
+        set_active_mesh(None)
+        if started:
+            dist.destroy_process_group()
+
+
+def _leaf_diffs(got, lane):
+    """Each leaf's max |lane - plain| over the plain leaf's max |.|."""
+    ref = got["plain"][2]
+    return {k: float((v - ref[k]).abs().max() / ref[k].abs().max())
+            for k, v in got[lane][2].items()}
+
+
+@pytest.fixture(scope="module")
+def world1():
+    return {dt: _world1_step(dt) for dt in ("float32", "bfloat16")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bf16_dtensor_step_equals_the_plain_step_at_world_1(world1, dtype):
+    got = world1[dtype]
+    (lp, gp, mp), (ld, gd, md) = got["plain"], got["dtensor"]
+    assert np.isfinite(lp) and gp > 0
+    assert ld == lp and gd == gp
+    assert sorted(md) == sorted(mp)
+    for k in mp:
+        assert torch.equal(md[k], mp[k]), (k, _leaf_diffs(got, "dtensor")[k])
+    # the control lane is the same step in exact arithmetic: it agrees
+    # with the plain lane only to the step's rounding
+    ctrl = _leaf_diffs(got, "control")
+    assert max(ctrl.values()) < 1e-2
+    assert abs(got["control"][1] - gp) / gp < 1e-4
+
+
+def test_the_composite_logsumexp_backward_parts_the_lanes(world1):
+    got = dict(world1["bfloat16"])
+    got.update(_world1_step("bfloat16", lanes=("dtensor",),
+                            logsumexp=_composite_logsumexp))
+    assert got["dtensor"][0] == got["plain"][0]        # the same forward
+    dt, ctrl = _leaf_diffs(got, "dtensor"), _leaf_diffs(got, "control")
+    parted = [k for k in dt if dt[k] > 10 * ctrl[k]]
+    assert parted, (dt, ctrl)

@@ -858,3 +858,75 @@ def test_ep_prefill_step_takes_moe_ep_under_the_host_mesh(dev, nccl):
     assert drops["dropped"] == 0
     want = pf(params, {"tokens": toks})
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fifo_sizing_example_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """``chip_smoke.py`` phase 25 (a) at fewer items: the port's
+    ``examples_torch/fifo_sizing_dse.py`` (every ``skynet_like`` capped at
+    128 items) with ``--device cuda`` launches kernel 1 in its served
+    sweeps and edit loop, and prints the clock-free numbers of its
+    ``--device cpu`` run."""
+    import repro_torch.designs.typea as typea
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    full = typea.skynet_like
+    monkeypatch.setattr(typea, "skynet_like", lambda items, depth: full(
+        items=min(items, 128), depth=depth))
+    on_cpu = smoke.run_example("fifo_sizing_dse.py", ["--device", "cpu"])
+    before = _cuda.SPARSE.launches
+    on_card = smoke.run_example("fifo_sizing_dse.py", ["--device", "cuda"])
+    assert _cuda.SPARSE.launches > before
+    assert smoke.dse_numbers([line for _, line in on_card]) == \
+        smoke.dse_numbers([line for _, line in on_cpu])
+    assert len(smoke.act_walls(on_card)) == 4
+
+
+def test_dtensor_bf16_train_step_equals_the_plain_step_on_the_card(dev,
+                                                                    nccl):
+    """One ``cast_bf16`` train step of smollm-135m ``.smoke()`` with
+    bfloat16 activations, B 8 x S 512 (4 096 token rows, past which the
+    card's embedding backward sorts), on DTensor parameters over NCCL's
+    mesh (1, 1) and on the plain parameters: loss, grad norm and every
+    leaf's first moment bit for bit (``chip_smoke.py`` 24 (c) at full
+    width prints the same)."""
+    import copy
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distrib.sharding import (batch_spec, device_put,
+                                              param_specs, placements,
+                                              set_active_mesh,
+                                              shardings_for)
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train.step import make_train_step
+    cfg = get_arch("smollm-135m").smoke().replace(dtype="bfloat16")
+    plain = api.init_params(0, cfg, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (8, 513)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    step = make_train_step(cfg, total_steps=10, peak_lr=1e-2,
+                           cast_bf16=True)
+    set_active_mesh(nccl)
+    try:
+        sharded = device_put(copy.deepcopy(plain), shardings_for(
+            nccl, param_specs(plain)))
+        dbatch = {k: DTensor.from_local(v, nccl, placements(
+            nccl, batch_spec(nccl, v.dim()))) for k, v in batch.items()}
+        got = {}
+        for lane, params, b in (("plain", plain, batch),
+                                ("dtensor", sharded, dbatch)):
+            _, opt, m = step(params, init_adamw(params), b)
+            got[lane] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: (v.full_tensor() if isinstance(v, DTensor)
+                              else v) for k, v in opt.mu.items()})
+    finally:
+        set_active_mesh(None)
+    (lp, gp, mp), (ld, gd, md) = got["plain"], got["dtensor"]
+    assert (ld, gd) == (lp, gp)
+    for k in mp:
+        assert torch.equal(md[k], mp[k]), k
