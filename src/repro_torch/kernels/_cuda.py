@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterator, List, Sequence
 
@@ -59,7 +60,9 @@ class CudaLib:
     ``launches`` is an integer that the kernel's Python wrapper raises by
     one (:meth:`count`) each time it launches the kernel, and nowhere
     else.  A source with more than one kernel route also counts each
-    launch under its route's name in ``route_launches``.
+    launch under its route's name in ``route_launches``, and a wrapper
+    that passes a key (flash attention: the window) counts it under that
+    key in ``launches_by``.
     """
 
     def __init__(self, name: str, signatures: Dict[str, Sequence],
@@ -69,6 +72,7 @@ class CudaLib:
         self.signatures = signatures
         self.launches = 0
         self.route_launches = dict.fromkeys(routes, 0)
+        self.launches_by: Counter = Counter()
         self._lib = None
         self._lock = threading.Lock()
 
@@ -77,14 +81,18 @@ class CudaLib:
         with self._lock:
             self.launches = 0
             self.route_launches = dict.fromkeys(self.route_launches, 0)
+            self.launches_by = Counter()
 
-    def count(self, route=None) -> None:
-        """Count one launch (and one of ``route``): under the lock, so
-        wrappers called from several threads lose no count."""
+    def count(self, route=None, key=None) -> None:
+        """Count one launch (and one of ``route``, and one under ``key``):
+        under the lock, so wrappers called from several threads lose no
+        count."""
         with self._lock:
             self.launches += 1
             if route is not None:
                 self.route_launches[route] += 1
+            if key is not None:
+                self.launches_by[key] += 1
 
     # -- build -----------------------------------------------------------
     def target(self) -> Path:

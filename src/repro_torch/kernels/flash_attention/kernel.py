@@ -11,7 +11,8 @@ head ``bh`` reads K/V head ``bh // group_size`` in place.  Any S works
 or bfloat16 and the output has the input dtype.
 
 The dtype picks the route, and each launch is counted in
-``FLASH.launches`` and under its route in ``FLASH.route_launches``:
+``FLASH.launches``, under its route in ``FLASH.route_launches`` and under
+its window (0: none) in ``FLASH.launches_by``:
 bfloat16 runs both products on the tensor cores (``"tensor_core_bf16"``:
 ``mma.sync`` with bf16 operands and f32 accumulation, P rounded to bf16);
 float32 runs them in exact f32 FMA (``"fma_f32"``).
@@ -117,7 +118,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    v.data_ptr(), out.data_ptr(), BH, S, hd, group_size,
                    int(bool(causal)), int(window), float(softcap), code,
                    stream_of(q))
-        FLASH.count(route)
+        FLASH.count(route, key=int(window))
     return out
 
 

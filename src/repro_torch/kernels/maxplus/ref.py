@@ -111,3 +111,14 @@ def maxplus_sweep_ref(a: torch.Tensor, t: torch.Tensor, base: torch.Tensor,
     if any_changed is not None:
         any_changed.copy_((out != t).any().reshape(1))
     return out
+
+
+def longest_path_ref(a: torch.Tensor, base: torch.Tensor,
+                     iters: int) -> torch.Tensor:
+    """``iters`` sweeps of :func:`maxplus_sweep_ref` from ``t = base``:
+    the dense lane's fixed-count oracle (the longest paths of a DAG of
+    ``n`` nodes once ``iters >= n``)."""
+    t = base
+    for _ in range(iters):
+        t = maxplus_sweep_ref(a, t, base)
+    return t

@@ -94,6 +94,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
     return x * scale * (1.0 + gamma).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (biased variance), scaled by
+    ``gamma``, shifted by ``beta`` and cast back to ``x``'s dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 style soft-capping: cap * tanh(x / cap)."""
     if cap <= 0.0:

@@ -46,6 +46,13 @@ def _torch(x, dtype):
     return torch.from_numpy(x).to(dtype)
 
 
+def _errors(got, want):
+    """The max absolute and relative errors, for a failure's message."""
+    err = np.abs(got - want)
+    rel = err / np.maximum(np.abs(want), np.finfo(np.float32).tiny)
+    return f"max abs err {err.max():.3g}, max rel err {rel.max():.3g}"
+
+
 def _np(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
@@ -85,9 +92,10 @@ def test_flash_attention_window_softcap(window, softcap):
     q, k, v = _inputs(7, B, S, H, Hkv, hd)
     want = _np(ref_flash(*(jnp.asarray(x) for x in (q, k, v)), window=window,
                          softcap=softcap, interpret=True))
-    got = tops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
-                               window=window, softcap=softcap)
-    np.testing.assert_allclose(_np(got), want, rtol=F32_TOL, atol=F32_TOL)
+    got = _np(tops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   window=window, softcap=softcap))
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL,
+                               err_msg=_errors(got, want))
 
 
 @pytest.mark.parametrize("S,hd,window,causal", [

@@ -762,6 +762,70 @@ def test_new_families_on_the_card_match_the_cpu(dev, name, kw):
                                    atol=0)
 
 
+def test_gemma2_windowed_softcapped_prefill_on_the_card(dev, monkeypatch):
+    """gemma2-2b's smoke config at hd 256, bf16, with its softcaps (50 on
+    the scores, 30 on the logits) and a window of 16 on alternate layers,
+    shorter than the 77-token prompt: the prefill takes the tensor-core
+    route once per layer, one windowed launch and one global, and its
+    logits agree with the same weights' prefill through the plain
+    version within chip_smoke.py phase 26 (a)'s limit (0.1, or the plain
+    lane's own bf16 error against its float32 logits if larger).  At the
+    model's attention shape, with q scaled so the scores reach the cap,
+    the kernel agrees with the plain version within one bf16 step and
+    1e-3, and the kernel without its softcap does not.  The float32
+    decode path, whose window cuts the cached keys, agrees with the
+    float32 prefill within the reference's 2e-2."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.models import api, lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.step import make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("gemma2-2b").smoke().replace(
+        head_dim=256, sliding_window=16, dtype="bfloat16")
+    assert cfg.attn_softcap == 50.0 and cfg.logit_softcap == 30.0
+    assert lm.layer_windows(cfg) == [16, 0]
+    params = api.init_params(0, cfg, device=dev)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(26).integers(
+        0, cfg.vocab_size, (2, 77))).to(dev)}
+    routes = dict(_cuda.FLASH.route_launches)
+    by = dict(_cuda.FLASH.launches_by)
+    got = make_prefill_step(cfg)(params, batch).float()
+    torch.cuda.synchronize()
+    assert _cuda.FLASH.route_launches == {
+        "tensor_core_bf16": routes["tensor_core_bf16"] + 2,
+        "fma_f32": routes["fma_f32"]}
+    assert {w: _cuda.FLASH.launches_by[w] - by.get(w, 0)
+            for w in (16, 0)} == {16: 1, 0: 1}
+    assert got.shape == (2, cfg.vocab_size) and bool(got.isfinite().all())
+    monkeypatch.setattr(fo, "flash_attention_bhsd", fr.attention_ref)
+    want = make_prefill_step(cfg)(params, batch).float()
+    c32 = cfg.replace(dtype="float32")
+    want32 = make_prefill_step(c32)(params, batch)
+    tol = max(0.1, (want - want32).abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    # the softcap where the scores reach it: N(0, 25^2) scores
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 2, 77, H, Hkv, hd, seed=26)
+    q = q * (cfg.attn_softcap / 2)
+    for w in (16, 0):
+        want_a = fr.attention_ref(q, k, v, window=w, softcap=50.0,
+                                  group_size=H // Hkv).float()
+        got_a = fk.flash_attention_bhsd(q, k, v, window=w, softcap=50.0,
+                                        group_size=H // Hkv).float()
+        torch.testing.assert_close(got_a, want_a, rtol=2.0 ** -7, atol=1e-3)
+        off = fk.flash_attention_bhsd(q, k, v, window=w, softcap=0.0,
+                                      group_size=H // Hkv).float()
+        assert not bool(((off - want_a).abs()
+                          <= 1e-3 + 2.0 ** -7 * want_a.abs()).all())
+    # the decode path at window 16 over the 77-token prompt
+    step, _ = ServeEngine(c32, params, batch=2, max_len=96).prefill(
+        batch["tokens"].cpu().numpy())
+    assert (want32 - step[:, 0]).abs().max().item() <= 2e-2
+
+
 # ------------------------------------------- expert parallelism, NCCL
 @pytest.fixture
 def nccl(dev):

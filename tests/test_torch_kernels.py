@@ -86,6 +86,23 @@ def test_longest_path_matches_reference_kernel(n_real):
         jnp.asarray(a), jnp.asarray(base), npad)))
 
 
+@pytest.mark.parametrize("n_real", [5, 60, 128, 250])
+def test_longest_path_ref_matches_the_references(n_real):
+    """``ref.longest_path_ref`` against the reference's oracle, bit for
+    bit: the full ``npad`` sweeps of ``tests/test_kernels.py`` and a
+    count too short to converge."""
+    rng = np.random.default_rng(n_real)
+    npad = ((n_real + ref_kernel.BLK - 1) // ref_kernel.BLK) * ref_kernel.BLK
+    a, base = _random_dag_dense(rng, n_real, npad)
+    for iters in (npad, 2):
+        want = np.asarray(ref_ref.longest_path_ref(
+            jnp.asarray(a), jnp.asarray(base), iters))
+        got = ref.longest_path_ref(torch.from_numpy(a),
+                                   torch.from_numpy(base), iters)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_one_sweep_matches_reference_kernel(seed):
     rng = np.random.default_rng(seed)

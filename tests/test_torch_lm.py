@@ -97,6 +97,24 @@ def test_layer_windows_are_the_references(name):
 
 
 # ------------------------------------------------------------------- common
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_layer_norm_matches_the_reference(dt):
+    """``common.layer_norm``: f32 statistics with gamma and beta, cast back
+    to x's dtype (the reference's ``models/common.py::layer_norm``)."""
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((3, 7, 48)) * 2.0 + 0.5).astype(np.float32)
+    g, b = (rng.standard_normal(48).astype(np.float32) for _ in range(2))
+    want = ref_common.layer_norm(jnp.asarray(x).astype(dt), jnp.asarray(g),
+                                 jnp.asarray(b))
+    got = common.layer_norm(torch.from_numpy(x).to(common.dtype_of(dt)),
+                            torch.from_numpy(g), torch.from_numpy(b))
+    assert got.dtype == common.dtype_of(dt)
+    tol = 1e-6 if dt == "float32" else BF16_STEP
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
 def test_common_numerics_match_the_reference():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 5, 3, 32)).astype(np.float32)

@@ -560,7 +560,8 @@ def test_launch_counts_survive_shard_threads():
     sys.setswitchinterval(1e-6)
     try:
         threads = [threading.Thread(target=lambda: [
-            lib.count("a") for _ in range(5000)]) for _ in range(8)]
+            lib.count("a", key=i % 2) for i in range(5000)])
+            for _ in range(8)]
         for t in threads:
             t.start()
         for t in threads:
@@ -569,8 +570,10 @@ def test_launch_counts_survive_shard_threads():
     finally:
         sys.setswitchinterval(interval)
     assert lib.launches == 40000 and lib.route_launches == {"a": 40000}
+    assert lib.launches_by == {0: 20000, 1: 20000}
     lib.reset_counts()
     assert lib.launches == 0 and lib.route_launches == {"a": 0}
+    assert not lib.launches_by
 
 
 # ------------------------------------------------------------------ cache
