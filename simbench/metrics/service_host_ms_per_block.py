@@ -1,0 +1,10 @@
+"""service_host_ms_per_block: the traced window's time that no device
+operation covers, over the blocks the sweep service's scheduler assembled in
+it (``SweepService.stats()["scheduler"]["blocks"]``)."""
+
+
+def read(run):
+    tl, rec = run.timeline, run.record
+    if tl is None or rec.blocks <= 0:
+        return None
+    return (tl.window_s - tl.busy_s) / rec.blocks * 1e3
