@@ -51,6 +51,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels._cuda import resolve_device
 from .engine import OmniSim, simulate
 from .graph import (export_chain_flat, longest_path_chains,
@@ -561,6 +562,7 @@ def _solve_block_numpy(ba: _BatchArrays, Db: np.ndarray):
     return times_out, conv_out, sweeps
 
 
+@obs.traced("dse.solve")
 def solve_block_status(cache: CompiledGraph, depth_block,
                        backend: str = "cuda", block: Optional[int] = None,
                        device="cuda"):
@@ -655,6 +657,7 @@ def status_reason(cache: CompiledGraph, status_k: int, violated_k: int,
             f"control/data flow diverges")
 
 
+@obs.traced("dse.materialize")
 def materialize_block(result: SimResult, Du: np.ndarray,
                       status_u: np.ndarray, cycles_u: np.ndarray,
                       violated_u: np.ndarray, fallback_mask: np.ndarray,
@@ -711,6 +714,7 @@ def materialize_block(result: SimResult, Du: np.ndarray,
     return results_u, reasons_u
 
 
+@obs.traced("dse.batch")
 def resimulate_batch(result: SimResult, depth_matrix,
                      fallback: bool = True, backend: str = "cuda",
                      block: Optional[int] = None, dedup: bool = True,

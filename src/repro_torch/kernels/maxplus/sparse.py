@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import obs
 from ...core.graph import ChainFlatArrays
 from .._cuda import SPARSE, check_batches, stream_of
 from .ref import solve_chains_ref
@@ -84,6 +85,7 @@ def _check(arr: ChainFlatArrays, depth: torch.Tensor) -> None:
                          "FIFOs")
 
 
+@obs.traced("kernel1.fixpoint")
 def solve_chains(arr: ChainFlatArrays, depth: torch.Tensor):
     """Solve K depth configs over one chain-flat graph.
 

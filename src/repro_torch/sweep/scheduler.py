@@ -94,6 +94,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..core.dse import (BACKENDS, CANCELLED, FAULTED, REUSED, TIMED_OUT,
                         materialize_block, solve_block_status)
 from ..core.program import SimResult
@@ -215,6 +216,7 @@ def _apply_shard_faults(out, hang_s: float, boom: bool, corrupt: bool):
     return out
 
 
+@obs.traced("sweep.shard")
 def _shard_task(graph, Db: np.ndarray, backend: str, block: int,
                 hang_s: float = 0.0, boom: bool = False,
                 corrupt: bool = False, device: str = "cuda"):
@@ -534,6 +536,9 @@ class BlockScheduler:
                     if req.entry is not anchor.entry:
                         continue
                     take = min(self.block - len(items), req.K - req.cursor)
+                    if req.cursor == 0 and take:
+                        obs.emit("sweep.queued", req.t_submit * 1e9,
+                                 _time.perf_counter_ns(), lane=req.priority)
                     items.extend((req, i) for i in
                                  range(req.cursor, req.cursor + take))
                     req.cursor += take
@@ -851,6 +856,7 @@ class BlockScheduler:
         path, which fails exactly the block's requests (error + terminal
         sentinel, so no client stream hangs) and re-raises.
         """
+        t0 = _time.perf_counter_ns()
         blk = self._assemble()
         if blk is None:
             return False
@@ -867,6 +873,7 @@ class BlockScheduler:
                         if req in lane:          # rows beyond this block
                             lane.remove(req)
             raise
+        obs.emit("sweep.block", t0, _time.perf_counter_ns())
         return True
 
     def wait_for_work(self, timeout: float = 0.2) -> None:
