@@ -40,10 +40,16 @@ Phases, each printing its own line:
      round: the time over the rounds launched beside the bound over the
      rounds needed),
      the device's busy share over one ``matmul_stream`` solve, and peak
-     device memory.  The bound counts the rounds (sweeps) the fixpoint
-     needs, up to and including the first that changes nothing; the loop
-     launches more, because the host reads the flag only every few
-     rounds, and those are reported apart;
+     device memory.  The bound counts the work the fixpoint needs, taken
+     from the plain version: for the dense kernel the sweeps up to and
+     including the first that changes nothing, for the sparse kernel each
+     row's rounds up to and including the first that changes nothing in
+     it (or freezes it as diverged), summed over the rows.  The loops
+     launch more, because the host reads the flag only every few rounds
+     (and the sparse kernel's gathered blocks keep converged rows beside
+     the live ones); those are reported apart (for the sparse kernel the
+     ``row_rounds`` its ``kernel1.fixpoint`` span reports,
+     :func:`kernel1_row_rounds`);
   8. the flash-attention kernel against its plain version on the card, on
      seeded inputs: (a) smollm-135m's attention, B 4, S 4096, 9 heads over
      3, hd 64, bf16, causal; (b) gemma2-2b's, B 1, S 8192, 8 heads over 4,
@@ -463,6 +469,24 @@ def phase(name):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def kernel1_row_rounds(solve):
+    """``(row_rounds, solve())``: ``solve()`` run once under a CPU-only
+    profiler, and the rows kernel 1's launched rounds covered in it, summed
+    over rounds, as its ``kernel1.fixpoint`` spans report them (a 4-row
+    group counts 4)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    obs.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = solve()
+    got = sum(s.attrs["row_rounds"] for s in obs.spans()
+              if s.name == "kernel1.fixpoint")
+    obs.clear()
+    return got, out
 
 
 def synthetic_chain_graph(rng, chains=16, fifos=6, lens=(50, 400)):
@@ -2861,21 +2885,25 @@ def main():
         log(f"  status counts {np.bincount(st[0], minlength=4).tolist()} "
             f"cycles {sorted(set(st[1].tolist()))[:6]}")
 
-    # key -> [(arr, D, result, CUDA-event ms)] of each plain solve that
-    # phase 4 ran; phase 7 reuses one on the same inputs and does not run
-    # the plain version again (~35 s a call for matmul_stream)
+    # key -> [(arr, D, result, CUDA-event ms, row-rounds needed)] of each
+    # plain solve that phase 4 ran; phase 7 reuses one on the same inputs
+    # and does not run the plain version again (~35 s a call for
+    # matmul_stream)
     plain4 = {}
 
     def recorded_plain(key):
         def solve(arr, Dt):
+            need = torch.zeros(Dt.shape[0], dtype=torch.int64,
+                               device=Dt.device)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            got = ref.solve_chains_ref(arr, Dt)
+            got = ref.solve_chains_ref(arr, Dt, row_rounds=need)
             b.record()
             sync()
             plain4.setdefault(key, []).append((arr, Dt, got,
-                                               a.elapsed_time(b)))
+                                               a.elapsed_time(b),
+                                               int(need.sum())))
             return got
         return solve
 
@@ -2965,11 +2993,15 @@ def main():
             got4 = plain4.pop(key, [])
             if (len(got4) == 1 and got4[0][0] is arr
                     and torch.equal(got4[0][1], Dt)):
-                _, _, res["p"], p_ms = got4[0]
+                _, _, res["p"], p_ms, need_rr = got4[0]
                 p_run = "phase 4"
             else:
+                need = torch.zeros(Dt.shape[0], dtype=torch.int64,
+                                   device=dev)
                 p_ms = cuda_time(lambda: res.__setitem__(
-                    "p", ref.solve_chains_ref(arr, Dt)), 1, warm_up=False)
+                    "p", ref.solve_chains_ref(arr, Dt, row_rounds=need)), 1,
+                    warm_up=False)
+                need_rr = int(need.sum())
                 p_run = "phase 7"
             del got4
             err = same_solve(res["k"], res["p"])
@@ -2979,13 +3011,19 @@ def main():
             check(rounds <= launched < rounds + _cuda.CHECK_CAP,
                   f"kernel launched {launched} rounds, plain needed {rounds}")
             E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
-            bytes_ = 4 * K * (2 * g.n + 2 * (E + m)) * rounds
+            row_rounds, _ = kernel1_row_rounds(
+                lambda: sparse.solve_chains(arr, Dt))
+            check(need_rr <= row_rounds, f"kernel covered {row_rounds} "
+                  f"row-rounds, plain needed {need_rr}")
+            bytes_ = 4 * (2 * g.n + 2 * (E + m)) * need_rr
             bound_ms = bytes_ / HBM_BYTES_PER_S * 1e3
             by_shape.append({
                 "shape": f"{K_label} (n={g.n}, E={E}, m={m}, K={K}, "
                          f"{arr.seg_lo.shape[0]} segments of <= "
                          f"{int((arr.seg_hi - arr.seg_lo).max())} nodes)",
-                "rounds": rounds, "launched": launched, "ms": k_ms,
+                "rounds": rounds, "launched": launched,
+                "row_rounds_needed": need_rr,
+                "row_rounds_launched": row_rounds, "ms": k_ms,
                 "plain_ms": p_ms, "plain_run": p_run, "bound_ms": bound_ms,
                 "us_per_round": 1e3 * k_ms / launched,
                 "bound_us_per_round": 1e3 * bound_ms / rounds,
@@ -4147,7 +4185,11 @@ def main():
         """Kernel 1 alone on g's device arrays over the rows of D that can
         commit, held against its plain version: (CUDA-event ms a solve,
         rounds launched, rounds the fixpoint needs, bound ms, max abs
-        err, E, m, K, the plain version's ms in one run)."""
+        err, E, m, K, the plain version's ms in one run, row-rounds the
+        fixpoint needs, row-rounds launched).  The bound counts the
+        row-rounds needed, from the plain version; those launched are
+        what the solve's ``kernel1.fixpoint`` span reports
+        (:func:`kernel1_row_rounds`)."""
         ba = dse._batch_arrays(g)
         Dc = D[~(D < ba.fifo_need[None, :]).any(axis=1)]
         arr = dse._sparse_arrays(ba, dev)
@@ -4156,15 +4198,22 @@ def main():
         got = {}
         ms = cuda_time(lambda: got.__setitem__(
             "k", sparse.solve_chains(arr, Dt)), 3)
+        need = torch.zeros(Dt.shape[0], dtype=torch.int64, device=dev)
         plain_ms = cuda_time(lambda: got.__setitem__(
-            "p", ref.solve_chains_ref(arr, Dt)), 1, warm_up=False)
+            "p", ref.solve_chains_ref(arr, Dt, row_rounds=need)), 1,
+            warm_up=False)
         plain = got["p"]
         err = same_solve(got["k"], plain)
         E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
-        rounds, K = plain[2], Dt.shape[0]
-        bound_ms = (4 * K * (2 * g.n + 2 * (E + m)) * rounds
+        rounds, K, need_rr = plain[2], Dt.shape[0], int(need.sum())
+        row_rounds, _ = kernel1_row_rounds(
+            lambda: sparse.solve_chains(arr, Dt))
+        check(need_rr <= row_rounds, f"kernel covered {row_rounds} "
+              f"row-rounds, plain needed {need_rr}")
+        bound_ms = (4 * (2 * g.n + 2 * (E + m)) * need_rr
                     / HBM_BYTES_PER_S * 1e3)
-        return ms, got["k"][2], rounds, bound_ms, err, E, m, K, plain_ms
+        return (ms, got["k"][2], rounds, bound_ms, err, E, m, K, plain_ms,
+                need_rr, row_rounds)
 
     def same_queries(a, b, what):
         check((a.stats.queries, a.stats.queries_forced_false,
@@ -4242,18 +4291,21 @@ def main():
                       "fig4_ex5: verdicts differ from phase 5's")
             per = {src: kernel1_alone(g, D)
                    for src, g in (("hybrid", g_h), ("generator", g_g))}
-            (ms_h, l_h, need, bnd, err, E, m, K, pl_h) = per["hybrid"]
+            (ms_h, l_h, need, bnd, err, E, m, K, pl_h, rr_need,
+             rr_l) = per["hybrid"]
             ms_g, l_g = per["generator"][:2]
             check(l_h == l_g and need == per["generator"][2],
                   f"{key}: kernel rounds differ {l_h} vs {l_g}")
             k1_hybrid[key] = {"ms": ms_h, "bound_ms": bnd, "max_abs_err": err,
-                              "plain_ms": pl_h}
+                              "plain_ms": pl_h, "row_rounds_needed": rr_need,
+                              "row_rounds_launched": rr_l}
             log(f"  {key} (n={g_h.n}, E={E}, m={m}, K={K} rows that can "
                 f"commit): kernel 1 per solve {ms_h:.3f} ms from the hybrid-"
                 f"built graph, {ms_g:.3f} ms from the generator-built "
                 f"({ms_h / ms_g:.3f}x); per round {1e3 * ms_h / l_h:.2f} "
                 f"against {1e3 * ms_g / l_g:.2f} us ({l_h} rounds launched, "
-                f"{need} needed); bound {bnd:.4f} ms, "
+                f"{need} needed; {rr_l} row-rounds launched, {rr_need} "
+                f"needed); bound {bnd:.4f} ms, "
                 f"{1e3 * bnd / need:.2f} us a round; plain version "
                 f"{pl_h:.3f} ms (one run); status, cycles, "
                 f"violated bit-identical; kernel 1 launches "
@@ -4514,14 +4566,16 @@ def main():
         per = {src: kernel1_alone(g, D18)
                for src, g in (("patched", g_p), ("cold", g_c))}
         peak = torch.cuda.max_memory_allocated() / 2**30 - held
-        (ms_p, l_p, need, bnd, err, E, m, K, pl_p) = per["patched"]
+        (ms_p, l_p, need, bnd, err, E, m, K, pl_p, rr_need,
+         rr_l) = per["patched"]
         ms_c, l_c, need_c = per["cold"][:3]
         check(l_p == l_c and need == need_c,
               f"kernel rounds differ: {l_p}/{need} vs {l_c}/{need_c}")
         k1_delta.update(shape=f"delay-patched corpus design (n={g_p.n}, "
                         f"E={E}, m={m}, K={K})", ms=ms_p, bound_ms=bnd,
                         rounds=need, launched=l_p, max_abs_err=err,
-                        plain_ms=pl_p)
+                        plain_ms=pl_p, row_rounds_needed=rr_need,
+                        row_rounds_launched=rr_l)
         log(f"  delay-patched design (n={g_p.n}, E={E}, m={m}, K={K}, "
             f"{len(d0)} FIFOs): served {s_srv:.3f} s at block 128 "
             f"({K / s_srv:.0f} configs/s; kernel 1 launches "
@@ -4529,7 +4583,8 @@ def main():
             f"on the cold-built base {s_dir:.3f} s; rows bit-identical, "
             f"and to numpy on 64; kernel 1 per solve {ms_p:.3f} ms from "
             f"the patched graph, {ms_c:.3f} ms from the cold-built "
-            f"({ms_p / ms_c:.3f}x); {l_p} rounds launched, {need} needed; "
+            f"({ms_p / ms_c:.3f}x); {l_p} rounds launched, {need} needed, "
+            f"{rr_l} row-rounds launched, {rr_need} needed; "
             f"bound {bnd:.4f} ms, {1e3 * bnd / need:.2f} us a round, "
             f"{1e3 * ms_p / l_p:.2f} us a launched round; plain version "
             f"{pl_p:.3f} ms (one run); peak device "

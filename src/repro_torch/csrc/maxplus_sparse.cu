@@ -1,9 +1,9 @@
-// Sparse chain-structured batched max-plus fixpoint: one round.
+// Sparse chain-structured batched max-plus fixpoint: its rounds.
 //
 // Replaces the TPU kernel `segmented_cummax` (src/repro/kernels/maxplus/
 // sparse.py, the Pallas call driven by `_fixpoint`) together with the XLA
-// scatter-max of its cross pass.  One call of `maxplus_sparse_round` runs
-// one fixpoint round for K depth configs at once:
+// scatter-max of its cross pass.  One call of `maxplus_sparse_rounds` runs
+// a batch of fixpoint rounds for K depth configs at once, each:
 //
 //   chain pass   t = cw + cummax_within_chain(c - cw), in two launches
 //                over (segment, config), every chain cut into segments of
@@ -38,7 +38,7 @@
 // make the parallelism (segment, config): L ~ sqrt(longest chain / 2)
 // keeps both a thread's walk (L nodes) and its carry (the maxima of the
 // earlier segments, a small (G, K) array that stays in L2) short, at the
-// price of reading c twice.  Each walk loads 8 nodes ahead of the running
+// price of reading c twice.  Each walk loads 16 nodes ahead of the running
 // max so the loads of one thread overlap.  That leaves the cross pass the
 // larger share of a round where WAR edges are many: a WAR edge's source
 // node depends on each config's depth, so its t loads are gathers, one
@@ -57,8 +57,24 @@
 //     t.
 //   * `changed[k]`: the cross pass raised some contribution of row k this
 //     round; reset by pass 1 at the start of every round.
-//   * `*any_changed`: OR of `changed` over rows, the one word the host reads
-//     to stop the loop.
+//
+// The live list.  After the last round of each batch `maxplus_sparse_live`
+// lists the rows that changed and have not diverged, in ascending order,
+// and writes their number: the one word the host reads, 0 stopping the
+// loop.  Rows are independent, so a row that changed nothing in a round is
+// at its least fixpoint: the next round would compute the same t from the
+// same c and raise nothing.  Where the list is at most half as long as the
+// block, the host gathers the listed rows' columns into a block of their
+// own (the block's K is then the list's length) and the next rounds run on
+// it; a row left out keeps its t and flags as its last round left them.
+// Listed rows solved in place, through an index list, cost about three
+// times as much a round on an H100 (matmul_stream, 33 of 1 024 rows: 64 us
+// against 20 us): each touches its own 32-byte sector of a 4 KB row of c
+// and t, and the L2 caches such scattered sectors a 128-byte line each, so
+// the live rows' state no longer fits in it.  A small block's grids are
+// small too: their blocks shrink (to 32 threads at least) until the grid
+// covers every SM, and each walk reads its carry 16 segment maxima at a
+// time, since its loads, not the card's bandwidth, set its time.
 // Times are int32 with -INF = -2^29; the caller refuses graphs whose bound
 // reaches 2^28, so no sum below can overflow.
 #include <cuda_runtime.h>
@@ -67,7 +83,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kAhead = 8;
+constexpr int kListThreads = 1024;
+constexpr int kAhead = 16;
 
 // V consecutive int32 words, moved as one int4 when V == 4 (16-byte
 // aligned: K % 4 == 0 and the tensors come from the caching allocator).
@@ -114,7 +131,7 @@ segment_max_kernel(const int* __restrict__ c, const int* __restrict__ cw,
                    const int* __restrict__ seg_hi,
                    const int* __restrict__ seg_first, int nseg, int K,
                    int* __restrict__ segmax, int* __restrict__ diverged,
-                   int* __restrict__ changed, int* __restrict__ any_changed) {
+                   int* __restrict__ changed) {
   const int KV = K / V;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= (int64_t)nseg * KV) return;
@@ -130,7 +147,6 @@ segment_max_kernel(const int* __restrict__ c, const int* __restrict__ cw,
       if (d) diverged[k + v] = 1;       // frozen before the next walk
     }
   }
-  if (s == 0 && k == 0) *any_changed = 0;
   const bool last = s + 1 == nseg || seg_first[s + 1] != seg_first[s];
   if (last || frozen) return;
   const int lo = seg_lo[s], hi = seg_hi[s];
@@ -191,12 +207,12 @@ segment_walk_kernel(const int* __restrict__ c, int* __restrict__ t,
 #pragma unroll
   for (int v = 0; v < V; ++v) run.w[v] = INT32_MIN;
   int j = seg_first[s];
-  for (; j + 4 <= s; j += 4) {
-    Words<V> m[4];
+  for (; j + 16 <= s; j += 16) {
+    Words<V> m[16];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) m[u].load(segmax + (int64_t)(j + u) * K + k);
+    for (int u = 0; u < 16; ++u) m[u].load(segmax + (int64_t)(j + u) * K + k);
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+    for (int u = 0; u < 16; ++u)
 #pragma unroll
       for (int v = 0; v < V; ++v) run.w[v] = max(run.w[v], m[u].w[v]);
   }
@@ -265,8 +281,7 @@ cross_pass_kernel(int* __restrict__ c, const int* __restrict__ t,
                   const int* __restrict__ war_rcols, int m,
                   const int* __restrict__ depth_t, int K,
                   const int* __restrict__ diverged,
-                  int* __restrict__ changed,
-                  int* __restrict__ any_changed) {
+                  int* __restrict__ changed) {
   const int KV = K / V;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (tid >= (int64_t)(E + m) * KV) return;
@@ -314,14 +329,55 @@ cross_pass_kernel(int* __restrict__ c, const int* __restrict__ t,
       raised = true;
     }
   }
-  if (raised) {
-    cv.store(cd);                  // unique destination: no other writer
-    *any_changed = 1;
-  }
+  if (raised) cv.store(cd);        // unique destination: no other writer
 }
 
-unsigned blocks_for(int64_t work) {
-  return (unsigned)((work + kThreads - 1) / kThreads);
+// The live list: one block walks the rows a tile of kListThreads at a
+// time; a warp ballot and the warps' counts give each row that changed and
+// has not diverged its place, so the list comes out in ascending order.
+__global__ void __launch_bounds__(kListThreads)
+live_list_kernel(const int* __restrict__ changed,
+                 const int* __restrict__ diverged, int K,
+                 int* __restrict__ live, int* __restrict__ n_live) {
+  constexpr int kWarps = kListThreads / 32;
+  __shared__ int warp_n[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int base = 0;
+  for (int k0 = 0; k0 < K; k0 += kListThreads) {
+    const int k = k0 + threadIdx.x;
+    const bool on = k < K && changed[k] && !diverged[k];
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int at = base, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) at += warp_n[w];
+      total += warp_n[w];
+    }
+    if (on) live[at + __popc(ballot & ((1u << lane) - 1u))] = k;
+    base += total;
+    __syncthreads();               // warp_n is written again by the next tile
+  }
+  if (threadIdx.x == 0) *n_live = base;
+}
+
+// A launch's blocks and threads a block for `work` threads: kThreads a
+// block, or fewer (a multiple of 32) where that leaves SMs without a block.
+struct Grid {
+  unsigned blocks, threads;
+};
+
+Grid grid_for(int64_t work) {
+  static const int sms = [] {
+    int d = 0, n = 132;
+    cudaGetDevice(&d);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, d);
+    return n;
+  }();
+  int64_t th = (work + sms - 1) / sms;
+  th = th < 32 ? 32 : th > kThreads ? kThreads : (th + 31) / 32 * 32;
+  return {(unsigned)((work + th - 1) / th), (unsigned)th};
 }
 
 template <int V>
@@ -329,15 +385,44 @@ cudaError_t chain_pass(const int* c, int* t, const int* cw,
                        const int* seg_lo, const int* seg_hi,
                        const int* seg_first, int nseg, int K, int bound,
                        int* segmax, int* diverged, int* changed,
-                       int* any_changed, cudaStream_t s) {
-  const unsigned blocks = blocks_for((int64_t)nseg * (K / V));
-  segment_max_kernel<V><<<blocks, kThreads, 0, s>>>(
-      c, cw, seg_lo, seg_hi, seg_first, nseg, K, segmax, diverged, changed,
-      any_changed);
+                       cudaStream_t s) {
+  const Grid g = grid_for((int64_t)nseg * (K / V));
+  segment_max_kernel<V><<<g.blocks, g.threads, 0, s>>>(
+      c, cw, seg_lo, seg_hi, seg_first, nseg, K, segmax, diverged, changed);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  segment_walk_kernel<V><<<blocks, kThreads, 0, s>>>(
+  segment_walk_kernel<V><<<g.blocks, g.threads, 0, s>>>(
       c, t, cw, seg_lo, seg_hi, seg_first, nseg, K, bound, segmax, diverged);
+  return cudaGetLastError();
+}
+
+// One fixpoint round: the chain pass, then the cross pass.
+cudaError_t one_round(int* c, int* t, const int* cw, const int* seg_lo,
+                      const int* seg_hi, const int* seg_first, int nseg,
+                      int* segmax, const int* raw_dst, const int* raw_src,
+                      const int* raw_w, int E, const int* war_dst,
+                      const int* war_wseq, const int* war_fid,
+                      const int* war_nr, const int* war_roff,
+                      const int* war_rcols, int m, const int* depth_t,
+                      int K, int bound, int* diverged, int* changed,
+                      cudaStream_t s) {
+  const cudaError_t err =
+      K % 4 == 0
+          ? chain_pass<4>(c, t, cw, seg_lo, seg_hi, seg_first, nseg, K, bound,
+                          segmax, diverged, changed, s)
+          : chain_pass<1>(c, t, cw, seg_lo, seg_hi, seg_first, nseg, K, bound,
+                          segmax, diverged, changed, s);
+  if (err != cudaSuccess) return err;
+  if (E + m == 0) return cudaSuccess;
+  const Grid g = grid_for((int64_t)(E + m) * (K % 4 == 0 ? K / 4 : K));
+  if (K % 4 == 0)
+    cross_pass_kernel<4><<<g.blocks, g.threads, 0, s>>>(
+        c, t, raw_dst, raw_src, raw_w, E, war_dst, war_wseq, war_fid, war_nr,
+        war_roff, war_rcols, m, depth_t, K, diverged, changed);
+  else
+    cross_pass_kernel<1><<<g.blocks, g.threads, 0, s>>>(
+        c, t, raw_dst, raw_src, raw_w, E, war_dst, war_wseq, war_fid, war_nr,
+        war_roff, war_rcols, m, depth_t, K, diverged, changed);
   return cudaGetLastError();
 }
 
@@ -345,7 +430,7 @@ cudaError_t chain_pass(const int* c, int* t, const int* cw,
 
 extern "C" {
 
-// One fixpoint round on `stream`.  All pointers are device pointers:
+// `rounds` fixpoint rounds on `stream`.  All pointers are device pointers:
 //   c, t        (n, K) int32, node-major; c is updated in place, t written
 //   cw          (n,)   cumulative SEQ weight of each column
 //   seg_lo/hi   (nseg,) column range of each chain segment, chain-major;
@@ -354,38 +439,38 @@ extern "C" {
 //   raw_*       (E,)   static RAW edges
 //   war_*       (m,)   WAR tables, war_rcols (R,)
 //   depth_t     (F, K) depth block, transposed (FIFO-major)
-//   diverged, changed (K,) int32 row flags; any_changed one int32
-// Every row flag must be reset to 0 before the first round, and nseg >= 1.
+//   diverged, changed (K,) int32 row flags
+// Every row flag must be 0 before a block's first round (a block gathered
+// from listed rows carries theirs: diverged 0, changed 1), and nseg >= 1.
 // Returns the CUDA error of the launches (0 = none).
-int maxplus_sparse_round(int* c, int* t, const int* cw, const int* seg_lo,
-                         const int* seg_hi, const int* seg_first, int nseg,
-                         int* segmax, const int* raw_dst, const int* raw_src,
-                         const int* raw_w, int E, const int* war_dst,
-                         const int* war_wseq, const int* war_fid,
-                         const int* war_nr, const int* war_roff,
-                         const int* war_rcols, int m, const int* depth_t,
-                         int K, int bound, int* diverged, int* changed,
-                         int* any_changed, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+int maxplus_sparse_rounds(int* c, int* t, const int* cw, const int* seg_lo,
+                          const int* seg_hi, const int* seg_first, int nseg,
+                          int* segmax, const int* raw_dst, const int* raw_src,
+                          const int* raw_w, int E, const int* war_dst,
+                          const int* war_wseq, const int* war_fid,
+                          const int* war_nr, const int* war_roff,
+                          const int* war_rcols, int m, const int* depth_t,
+                          int K, int bound, int* diverged, int* changed,
+                          int rounds, void* stream) {
   if (nseg < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      K % 4 == 0
-          ? chain_pass<4>(c, t, cw, seg_lo, seg_hi, seg_first, nseg, K, bound,
-                          segmax, diverged, changed, any_changed, s)
-          : chain_pass<1>(c, t, cw, seg_lo, seg_hi, seg_first, nseg, K, bound,
-                          segmax, diverged, changed, any_changed, s);
-  if (err != cudaSuccess) return (int)err;
-  if (E + m == 0) return 0;
-  if (K % 4 == 0)
-    cross_pass_kernel<4><<<blocks_for((int64_t)(E + m) * (K / 4)), kThreads,
-                           0, s>>>(
-        c, t, raw_dst, raw_src, raw_w, E, war_dst, war_wseq, war_fid, war_nr,
-        war_roff, war_rcols, m, depth_t, K, diverged, changed, any_changed);
-  else
-    cross_pass_kernel<1><<<blocks_for((int64_t)(E + m) * K), kThreads, 0,
-                           s>>>(
-        c, t, raw_dst, raw_src, raw_w, E, war_dst, war_wseq, war_fid, war_nr,
-        war_roff, war_rcols, m, depth_t, K, diverged, changed, any_changed);
+  for (int r = 0; r < rounds; ++r) {
+    const cudaError_t err = one_round(
+        c, t, cw, seg_lo, seg_hi, seg_first, nseg, segmax, raw_dst, raw_src,
+        raw_w, E, war_dst, war_wseq, war_fid, war_nr, war_roff, war_rcols, m,
+        depth_t, K, bound, diverged, changed, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The live list after a round on `stream`: into `live` (K entries) the
+// rows with changed == 1 and diverged == 0, in ascending order; into
+// `*n_live` their number.  Returns the CUDA error (0 = none).
+int maxplus_sparse_live(const int* changed, const int* diverged, int K,
+                        int* live, int* n_live, void* stream) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  live_list_kernel<<<1, kListThreads, 0, (cudaStream_t)stream>>>(
+      changed, diverged, K, live, n_live);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,8 @@ and flags, so an edited source is rebuilt and never mixed with a stale
 binary.
 
 :func:`check_batches` is the host side of every device fixpoint loop: how
-many rounds to launch before reading the one "changed" flag word.
+many rounds to launch before reading the one word that says whether the
+last round changed anything.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc`` or a card.
@@ -33,7 +34,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 # a fixpoint loop reads its flag after 1, 2, 4, ... rounds, then every
 # CHECK_CAP rounds.  Each read costs a host sync; a larger cap launches
-# more full rounds past the fixpoint (up to CHECK_CAP - 1, half that on
+# more rounds past the fixpoint (up to CHECK_CAP - 1, half that on
 # average).  32 keeps both small on the bundled designs' 450-8200 rounds.
 CHECK_CAP = 32
 
@@ -83,16 +84,16 @@ class CudaLib:
             self.route_launches = dict.fromkeys(self.route_launches, 0)
             self.launches_by = Counter()
 
-    def count(self, route=None, key=None) -> None:
-        """Count one launch (and one of ``route``, and one under ``key``):
-        under the lock, so wrappers called from several threads lose no
-        count."""
+    def count(self, route=None, key=None, n: int = 1) -> None:
+        """Count ``n`` launches (and as many of ``route``, and under
+        ``key``): under the lock, so wrappers called from several threads
+        lose no count."""
         with self._lock:
-            self.launches += 1
+            self.launches += n
             if route is not None:
-                self.route_launches[route] += 1
+                self.route_launches[route] += n
             if key is not None:
-                self.launches_by[key] += 1
+                self.launches_by[key] += n
 
     # -- build -----------------------------------------------------------
     def target(self) -> Path:
@@ -142,8 +143,9 @@ class CudaLib:
 
 
 SPARSE = CudaLib("maxplus_sparse", {
-    "maxplus_sparse_round": [P, P, P, P, P, P, I, P, P, P, P, I, P, P, P, P,
-                             P, P, I, P, I, I, P, P, P, P],
+    "maxplus_sparse_rounds": [P, P, P, P, P, P, I, P, P, P, P, I, P, P, P,
+                              P, P, P, I, P, I, I, P, P, I, P],
+    "maxplus_sparse_live": [P, P, I, P, P, P],
 })
 DENSE = CudaLib("maxplus_dense", {
     "maxplus_dense_sweep": [P, P, P, I, P, I, I, P, P],

@@ -46,7 +46,8 @@ def segment_cummax_ref(x: torch.Tensor, seg_lo, seg_hi,
     return out
 
 
-def solve_chains_ref(arr, depth: torch.Tensor):
+def solve_chains_ref(arr, depth: torch.Tensor,
+                     row_rounds: Optional[torch.Tensor] = None):
     """The sparse fixpoint in torch ops: the Jacobi rounds of the
     reference's ``sparse._fixpoint``, node-major.
 
@@ -58,6 +59,10 @@ def solve_chains_ref(arr, depth: torch.Tensor):
     and regenerated WAR scatter-max into ``c`` (destinations are unique,
     so plain indexed assignment is exact).  Stops when no row changes or
     after ``n + 2`` rounds; a row still changing then is not converged.
+    ``row_rounds`` ((K,) int64), when given, has each row's rounds added
+    to it: the rounds the row needs, up to and including the first that
+    changes nothing in it or the one that freezes it as diverged, however
+    many rounds the other rows hold the loop for.
     """
     n, K = arr.n, depth.shape[0]
     dev = depth.device
@@ -79,6 +84,8 @@ def solve_chains_ref(arr, depth: torch.Tensor):
     pending = torch.ones(K, dtype=torch.bool, device=dev)
     rounds = 0
     while rounds < n + 2 and bool(pending.any()):
+        if row_rounds is not None:
+            row_rounds += pending
         t = segmented_cummax_ref(c - cw, arr.chain_lo, arr.chain_hi) + cw
         diverged |= (t > arr.bound).any(dim=0)
         c2 = c.clone()

@@ -8,8 +8,9 @@ directly over the chain-major flat arrays (:class:`~repro_torch.core.graph
 .ChainFlatArrays`), so a block of K depth configs costs O(K·n + K·edges)
 device memory.
 
-One round of the hand-written CUDA kernel (``csrc/maxplus_sparse.cu``)
-does, for all K configs at once:
+One round of the hand-written CUDA kernel (``csrc/maxplus_sparse.cu``,
+which launches a batch of rounds a call) does, for all K configs of a
+block at once:
 
   1. **chain pass** — ``t = cw + cummax_within_chain(c - cw)``, over the
      segments of the graph's segment table (every chain cut into runs of
@@ -29,17 +30,36 @@ does, for all K configs at once:
 A row whose times pass the acyclic ``bound`` is frozen as diverged (a WAR
 cycle) before the cross pass of that round.  The loop stops when no row
 changed in a round, or after ``n + 2`` rounds; a row still changing then
-is a cycle too.  The host reads one flag word per batch of rounds
-(:func:`~repro_torch.kernels._cuda.check_batches`), so it launches up to
-31 full rounds past the fixpoint, which change nothing.  The state is
-node-major ``(n, K)`` int32 with the configs fastest, the layout
-``core.dse`` consumes.
+is a cycle too.  The state is node-major ``(n, K)`` int32 with the configs
+fastest, the layout ``core.dse`` consumes.
+
+**The live list.**  Rows are independent, and a row that changed nothing
+in a round is at its least fixpoint for good.  So after the last round of
+each batch (:func:`~repro_torch.kernels._cuda.check_batches`: after 1, 2,
+4, ... 32 rounds) a fourth kernel lists on the device the rows that changed
+and have not diverged, and the host reads the list's length, its one sync
+per batch: 0 stops the loop, so up to 31 rounds run past the fixpoint.
+Where that length is at most half of the rows the rounds cover, the
+listed rows' columns are gathered into a block of their own and the next
+rounds run on it; the rows left out keep the times and flags of their
+last round, written back into the whole block's, so the result is the one
+rounds over all K rows give, bit for bit.  A block whose rows need 3 to
+7 682 rounds (``matmul_stream``) spends its late rounds on the few rows
+still changing, held densely, where the L2 keeps them (``csrc/
+maxplus_sparse.cu`` says why they are not solved in place).
+
+Under a profiler each call is recorded as the span ``kernel1.fixpoint``
+(:mod:`repro_torch.obs`) with ``rows`` (K), ``rounds`` (launched) and
+``row_rounds``: the rows the launched rounds covered, summed over rounds
+(the plain version: ``K * rounds``).
 
 Everything is int32 with -INF = :data:`NEG`; callers refuse graphs whose
 path-length bound reaches 2^28 (``core.dse``'s saturation guard), so no
 sum overflows.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -85,7 +105,6 @@ def _check(arr: ChainFlatArrays, depth: torch.Tensor) -> None:
                          "FIFOs")
 
 
-@obs.traced("kernel1.fixpoint")
 def solve_chains(arr: ChainFlatArrays, depth: torch.Tensor):
     """Solve K depth configs over one chain-flat graph.
 
@@ -101,19 +120,33 @@ def solve_chains(arr: ChainFlatArrays, depth: torch.Tensor):
     A CUDA tensor runs the hand-written kernel; a CPU tensor runs the plain
     version (:func:`~.ref.solve_chains_ref`); any other device raises.
     """
-    if depth.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no max-plus kernel for device {depth.device}")
-    _check(arr, depth)
-    K, n = depth.shape[0], arr.n
-    if K == 0 or n == 0:
-        return (torch.zeros((n, K), dtype=torch.int32, device=depth.device),
-                torch.ones(K, dtype=torch.bool, device=depth.device), 0)
-    if depth.device.type == "cpu":
-        return solve_chains_ref(arr, depth)
-    return _solve_chains_cuda(arr, depth)
+    t0 = time.perf_counter_ns()
+    # the span's attributes, as far as the solve got: a call that raises
+    # is recorded too
+    tally = {"rows": 0, "rounds": 0, "row_rounds": 0}
+    try:
+        if depth.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no max-plus kernel for device {depth.device}")
+        _check(arr, depth)
+        K, n = depth.shape[0], arr.n
+        tally["rows"] = K
+        if K == 0 or n == 0:
+            return (torch.zeros((n, K), dtype=torch.int32,
+                                device=depth.device),
+                    torch.ones(K, dtype=torch.bool, device=depth.device), 0)
+        if depth.device.type == "cpu":
+            t, converged, rounds = solve_chains_ref(arr, depth)
+            tally.update(rounds=rounds, row_rounds=K * rounds)
+            return t, converged, rounds
+        return _solve_chains_cuda(arr, depth, tally)
+    finally:
+        obs.emit("kernel1.fixpoint", t0, time.perf_counter_ns(), **tally)
 
 
-def _solve_chains_cuda(arr: ChainFlatArrays, depth: torch.Tensor):
+def _solve_chains_cuda(arr: ChainFlatArrays, depth: torch.Tensor,
+                       tally: dict):
+    """The round loop on the card: ``(times, converged, rounds)``; adds
+    the rounds launched and the rows they covered to ``tally``."""
     dev = depth.device
     K, n = depth.shape[0], arr.n
     c = arr.c_seed[:, None].expand(n, K).contiguous()
@@ -121,29 +154,56 @@ def _solve_chains_cuda(arr: ChainFlatArrays, depth: torch.Tensor):
     depth_t = depth.t().contiguous()                    # (F, K)
     diverged = torch.zeros(K, dtype=torch.int32, device=dev)
     changed = torch.zeros(K, dtype=torch.int32, device=dev)
-    any_changed = torch.zeros(1, dtype=torch.int32, device=dev)
     stream = stream_of(depth)
-    E, m = arr.raw_dst.shape[0], arr.war_dst.shape[0]
     nseg = arr.seg_lo.shape[0]
     segmax = torch.empty((nseg, K), dtype=torch.int32, device=dev)
-    rounds = 0
+    live = torch.empty(K, dtype=torch.int32, device=dev)
+    n_live = torch.zeros(1, dtype=torch.int32, device=dev)
+    graph = (arr.cw.data_ptr(), arr.seg_lo.data_ptr(), arr.seg_hi.data_ptr(),
+             arr.seg_first.data_ptr(), nseg, segmax.data_ptr(),
+             arr.raw_dst.data_ptr(), arr.raw_src.data_ptr(),
+             arr.raw_w.data_ptr(), arr.raw_dst.shape[0],
+             arr.war_dst.data_ptr(), arr.war_wseq.data_ptr(),
+             arr.war_fid.data_ptr(), arr.war_nr.data_ptr(),
+             arr.war_roff.data_ptr(), arr.war_rcols.data_ptr(),
+             arr.war_dst.shape[0])
+    # once the rounds leave rows behind: the whole block's (t, diverged,
+    # changed), and the whole block's index of each row still solved
+    whole, rows = None, None
+    k, key = K, None
     for batch in check_batches(n + 2):
-        for _ in range(batch):
-            SPARSE.call(
-                "maxplus_sparse_round", c.data_ptr(), t.data_ptr(),
-                arr.cw.data_ptr(), arr.seg_lo.data_ptr(),
-                arr.seg_hi.data_ptr(), arr.seg_first.data_ptr(), nseg,
-                segmax.data_ptr(),
-                arr.raw_dst.data_ptr(), arr.raw_src.data_ptr(),
-                arr.raw_w.data_ptr(), E,
-                arr.war_dst.data_ptr(), arr.war_wseq.data_ptr(),
-                arr.war_fid.data_ptr(), arr.war_nr.data_ptr(),
-                arr.war_roff.data_ptr(), arr.war_rcols.data_ptr(), m,
-                depth_t.data_ptr(), K, int(arr.bound), diverged.data_ptr(),
-                changed.data_ptr(), any_changed.data_ptr(), stream)
-            SPARSE.count()
-            rounds += 1
-        if not int(any_changed.item()):
+        SPARSE.call("maxplus_sparse_rounds", c.data_ptr(), t.data_ptr(),
+                    *graph, depth_t.data_ptr(), k, int(arr.bound),
+                    diverged.data_ptr(), changed.data_ptr(), batch, stream)
+        SPARSE.count(key=key, n=batch)
+        tally["rounds"] += batch
+        tally["row_rounds"] += batch * k
+        SPARSE.call("maxplus_sparse_live", changed.data_ptr(),
+                    diverged.data_ptr(), k, live.data_ptr(),
+                    n_live.data_ptr(), stream)
+        now = int(n_live.item())
+        if not now:
             break
+        if 2 * now <= k:
+            keep = live[:now].long()
+            if whole is None:
+                whole, rows = (t, diverged, changed), keep
+            else:
+                _write_back(whole, rows, t, diverged, changed)
+                rows = rows[keep]
+            c, t, depth_t = (x.index_select(1, keep) for x in (c, t, depth_t))
+            diverged, changed = diverged[keep], changed[keep]
+            k, key = now, "live"
+    if whole is not None:
+        _write_back(whole, rows, t, diverged, changed)
+        t, diverged, changed = whole
     converged = (diverged == 0) & (changed == 0)
-    return t, converged, rounds
+    return t, converged, tally["rounds"]
+
+
+def _write_back(whole, rows, t, diverged, changed) -> None:
+    """Put the rows of a gathered block back into the whole block's times
+    and flags."""
+    whole[0][:, rows] = t
+    whole[1][rows] = diverged
+    whole[2][rows] = changed

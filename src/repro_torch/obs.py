@@ -21,6 +21,7 @@ The sites, and what each covers:
 ``dse.materialize``    ``materialize_block``
 ``kernel1.fixpoint``   ``kernels.maxplus.sparse.solve_chains``: the round
                        loop on the card, or its plain version on the CPU
+                       (``rows``, ``rounds``, ``row_rounds``)
 =====================  ===================================================
 
 The recorder keeps the last :data:`CAP` spans; older ones are dropped and

@@ -88,13 +88,15 @@ def test_sparse_fixpoint_matches_plain_version(dev):
     assert torch.equal(t_k[:, c_k], t_p[:, c_p])
 
 
-def test_segmented_fixpoint_on_long_chains_matches_plain_version(dev):
+@pytest.mark.parametrize("K", [1000, 1024])
+def test_segmented_fixpoint_on_long_chains_matches_plain_version(dev, K):
     """``chip_smoke.py``'s synthetic chain graph with 3 chains of 1 000 to
     3 000 nodes (lengths that are not multiples of the segment length),
-    K = 1 000 (not a multiple of 4: the scalar path) and depths 1-64,
-    under which about a third of the rows form WAR cycles: the kernel's
-    times and converged mask on every row equal the plain version's, bit
-    for bit."""
+    K = 1 000 (not a multiple of 4: the scalar path) or 1 024 (4 configs
+    a thread) and depths 1-64, under which some rows form WAR cycles and
+    diverge after the rounds have gone over to blocks gathered from the
+    live list: the kernel's times and converged mask on every row equal
+    the plain version's, bit for bit."""
     from repro_torch.core.graph import export_chain_flat
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -106,17 +108,56 @@ def test_segmented_fixpoint_on_long_chains_matches_plain_version(dev):
     L = int((arr.seg_hi - arr.seg_lo).max())
     lens = (arr.chain_hi - arr.chain_lo).tolist()
     assert all(x % L for x in lens), (lens, L)
-    D = torch.from_numpy(rng.integers(1, 65, size=(1000, 6))
+    D = torch.from_numpy(rng.integers(1, 65, size=(K, 6))
                          .astype(np.int32)).to(dev)
-    before = _cuda.SPARSE.launches
+    _cuda.SPARSE.reset_counts()
     t_k, c_k, rounds = sparse.solve_chains(arr, D)
-    assert _cuda.SPARSE.launches - before == rounds
+    assert _cuda.SPARSE.launches == rounds
+    assert _cuda.SPARSE.launches_by["live"] > 0
     t_p, c_p, rounds_p = ref.solve_chains_ref(arr, D)
     assert rounds_p <= rounds < rounds_p + _cuda.CHECK_CAP
-    assert 0 < int(c_p.sum()) < 1000          # some rows are WAR cycles
+    assert 0 < int(c_p.sum()) < K             # some rows are WAR cycles
     assert torch.equal(c_k, c_p)
     # a row frozen as diverged keeps the times of its last chain pass in
     # both versions, so every row's times agree
+    assert torch.equal(t_k, t_p)
+
+
+def test_live_list_on_a_sweep_block_matches_plain_version(dev):
+    """``matmul_stream()`` under a 1 024-row block of the 1-64 grid with 16
+    rows at depth 1 on FIFO ``b`` (~7 700 rounds) and 16 on ``c`` (~480):
+    the rest need 3, so the rounds go over to blocks gathered from the
+    live list, cover a tenth of the rows or less, and still give the
+    plain version's times and converged mask on every row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    engine = simulate(matmul_stream()).graph
+    g = compile_graph(engine)
+    ba = tdse._batch_arrays(g)
+    arr = tdse._sparse_arrays(ba, dev)
+    names = [f.name for f in engine.fifos]
+    b, c = names.index("b"), names.index("c")
+    D = np.random.default_rng(30).integers(2, 65, size=(1024, len(names)))
+    D[0::64, b] = 1
+    D[32::64, c] = 1
+    assert not (D < ba.fifo_need[None, :]).any()
+    Dt = torch.from_numpy(D.astype(np.int32)).to(dev)
+    _cuda.SPARSE.reset_counts()
+    obs.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        t_k, c_k, rounds = sparse.solve_chains(arr, Dt)
+    span, = [s for s in obs.spans() if s.name == "kernel1.fixpoint"]
+    obs.clear()
+    assert _cuda.SPARSE.launches == rounds
+    assert _cuda.SPARSE.launches_by["live"] > 0
+    assert span.attrs["rows"] == 1024 and span.attrs["rounds"] == rounds
+    assert span.attrs["row_rounds"] < 1024 * rounds / 10
+    t_p, c_p, rounds_p = ref.solve_chains_ref(arr, Dt)
+    assert rounds_p <= rounds < rounds_p + _cuda.CHECK_CAP
+    assert rounds_p > 7000
+    assert torch.equal(c_k, c_p)
     assert torch.equal(t_k, t_p)
 
 

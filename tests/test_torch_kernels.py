@@ -31,7 +31,8 @@ from repro.kernels.maxplus import sparse as ref_sparse
 import repro_torch.core.dse as tdse
 from repro_torch.core import compile_graph, simulate
 from repro_torch.core.graph import segment_length, segment_table
-from repro_torch.designs.typea import producer_consumer, skynet_like
+from repro_torch.designs.typea import (matmul_stream, producer_consumer,
+                                       skynet_like)
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.maxplus import kernel, ops, ref, sparse
 
@@ -333,6 +334,46 @@ def test_solve_chains_flags_a_war_cycle():
     _, conv, _ = tdse._solve_sparse_cuda(g, ba, np.array([[1, 1], [8, 8]]),
                                          "cpu")
     assert conv.tolist() == [False, True]
+
+
+def test_plain_solve_counts_each_rows_rounds_as_if_solved_alone():
+    """``solve_chains_ref``'s ``row_rounds``: each row's count is the
+    rounds that row takes solved alone (a converging row to its first
+    round that changes nothing, a diverging one to the round that freezes
+    it), and the slowest row's is the block's."""
+    from repro_torch.core import Emit, Program, Read, Write
+
+    prog = Program("burst_pingpong")
+    cmd, resp = prog.fifo("cmd", 8), prog.fifo("resp", 8)
+
+    @prog.module("ctrl")
+    def ctrl():
+        for i in range(8):
+            yield Write(cmd, i)
+        tot = 0
+        for _ in range(8):
+            tot += (yield Read(resp))
+        yield Emit("sum", tot)
+
+    @prog.module("proc")
+    def proc():
+        for _ in range(8):
+            v = yield Read(cmd)
+            yield Write(resp, 2 * v)
+
+    for b, D in ((simulate(prog), [[1, 1], [8, 8], [2, 1], [1, 8], [3, 3]]),
+                 (simulate(matmul_stream(m=3, k=3, n=3)),
+                  [[1, 1, 1], [1, 4, 4], [4, 1, 4], [4, 4, 1], [8, 8, 8]])):
+        arr = tdse._sparse_arrays(tdse._batch_arrays(compile_graph(b.graph)),
+                                  "cpu")
+        D = torch.as_tensor(np.asarray(D), dtype=torch.int32)
+        need = torch.zeros(D.shape[0], dtype=torch.int64)
+        _, conv, rounds = ref.solve_chains_ref(arr, D, row_rounds=need)
+        alone = [ref.solve_chains_ref(arr, D[k:k + 1])[2]
+                 for k in range(D.shape[0])]
+        assert need.tolist() == alone
+        assert max(alone) == rounds
+        assert len(set(alone)) > 1
 
 
 def test_solve_chains_rejects_bad_inputs():

@@ -1,9 +1,13 @@
 """The port's span recorder (``repro_torch.obs``): it records only under a
 ``torch.profiler`` session, its sites nest as documented, and the
-oldest spans go past its cap. On the CPU lane, at a tiny design."""
+oldest spans go past its cap; kernel 1's span carries its row-rounds, which
+the benchmark's reader ``kernel1_row_rounds_per_config`` reads. On the CPU
+lane, at a tiny design."""
 import sys
 import threading
 from collections import deque
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -11,10 +15,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import obs
-from repro_torch.core import resimulate_batch, simulate
+from repro_torch.core import compile_graph, resimulate_batch, simulate
 from repro_torch.designs.typea import matmul_stream
 from repro_torch.sweep import SweepService
 
+ROOT = Path(__file__).resolve().parents[1]
 NAMES = {"sweep.queued", "sweep.block", "sweep.shard", "dse.batch",
          "dse.solve", "dse.materialize", "kernel1.fixpoint"}
 
@@ -154,3 +159,64 @@ def test_threads_lose_no_span_and_no_drop_count(monkeypatch):
         sys.setswitchinterval(old)
     assert len(obs.spans()) == 1000
     assert obs.dropped() == n_threads * each - 1000
+
+
+def test_kernel1_span_carries_rows_rounds_and_row_rounds(base):
+    import repro_torch.core.dse as tdse
+    from repro_torch.kernels.maxplus import sparse
+
+    g = compile_graph(base.graph)
+    arr = tdse._sparse_arrays(tdse._batch_arrays(g), "cpu")
+    D = torch.from_numpy(_rows(24, 4).astype(np.int32))
+    with profile(activities=[ProfilerActivity.CPU]):
+        _t, _c, rounds = sparse.solve_chains(arr, D)
+    got = obs.spans()
+    assert [s.name for s in got] == ["kernel1.fixpoint"]
+    # the plain version runs every round over all K rows
+    assert got[0].attrs == {"rows": 24, "rounds": rounds,
+                            "row_rounds": 24 * rounds}
+    assert rounds > 0
+
+
+
+def test_a_kernel1_call_that_raises_is_recorded(base):
+    import repro_torch.core.dse as tdse
+    from repro_torch.kernels.maxplus import sparse
+
+    g = compile_graph(base.graph)
+    arr = tdse._sparse_arrays(tdse._batch_arrays(g), "cpu")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(ValueError, match="int32"):
+            sparse.solve_chains(arr, torch.ones((2, 3), dtype=torch.int64))
+    got = obs.spans()
+    assert [s.name for s in got] == ["kernel1.fixpoint"]
+    assert got[0].attrs == {"rows": 0, "rounds": 0, "row_rounds": 0}
+
+
+@pytest.mark.parametrize("name", ["kernel1_row_rounds_per_config",
+                                  "kernel1_row_rounds_per_config.served"])
+def test_the_row_rounds_reader_sums_the_windows_spans(monkeypatch, name):
+    monkeypatch.syspath_prepend(str(ROOT))
+    from simbench import harness, spans, timeline
+
+    run = SimpleNamespace(timeline=timeline.Timeline([], 1.0),
+                          record=harness.Record())
+    run.record.t0, run.record.t1, run.record.solved = 100.0, 101.0, 2048
+    at = lambda x: int(round((100 + x) * 1e9))            # noqa: E731
+    got = [obs.Span("kernel1.fixpoint", 1, at(0.1), at(0.4),
+                    {"rows": 1024, "rounds": 8191, "row_rounds": 500_000}),
+           obs.Span("kernel1.fixpoint", 2, at(0.5), at(0.9),
+                    {"rows": 1024, "rounds": 8191, "row_rounds": 524_288}),
+           obs.Span("kernel1.fixpoint", 1, at(-2.0), at(-1.0),  # before it
+                    {"rows": 1024, "rounds": 3, "row_rounds": 3072}),
+           obs.Span("dse.batch", 1, at(0.0), at(0.95), None)]
+    monkeypatch.setattr(spans, "recorded", lambda: got)
+    read = harness.load_reader(name)
+    assert read(run) == pytest.approx((500_000 + 524_288) / 2048)
+    # spans without the attribute, as a port before it records them
+    monkeypatch.setattr(spans, "recorded", lambda: [
+        s._replace(attrs=None) if s.name == "kernel1.fixpoint" else s
+        for s in got])
+    assert read(run) is None
+    monkeypatch.setattr(spans, "recorded", lambda: None)
+    assert read(run) is None
