@@ -7,7 +7,10 @@ and seed contribution; per read its RAW edge (source, destination, weight)
 and its column in its FIFO's read table; per write its WAR entry
 (destination, sequence number, FIFO); per FIFO and per module two bounds;
 and the K x F depth rows. It writes once the K x n int32 times. Counted once
-per solver block, as the graph is read again by every block.
+per solver block, as the graph is read again by every block. For a design
+with non-blocking accesses the sizes are those of its run at its default
+depths (``reference.simulate.Design``), the graph that the program
+re-solves.
 """
 from __future__ import annotations
 

@@ -1,15 +1,19 @@
 """A designer's sweep: ``core.dse.resimulate_batch`` in a closed loop.
 
 Each call sends the next ``rows`` depth rows of the mix and waits for every
-answer before the next call. The window starts with the first call and ends
-with the last answer of the last call that started inside ``seconds``, so
-its rate covers all the work and all the time of the window.
+answer before the next call; a row the solver could not reuse takes its
+final answer from the call's fallback re-simulation. The window starts with
+the first call and ends with the last answer of the last call that started
+inside ``seconds``, so its rate covers all the work and all the time of the
+window.
 """
 from __future__ import annotations
 
 import time
 
 import numpy as np
+
+from ..check import final_answers
 
 
 class Driver:
@@ -44,7 +48,9 @@ class Driver:
             rec.count_sent(len(D))
             out = self._call(D)
             rec.add_answers(D, out.status, out.cycles, out.violated,
-                            at=time.perf_counter())
+                            at=time.perf_counter(),
+                            final=final_answers(out.status, out.cycles,
+                                                out.results))
             rec.solved += int(out.n_unique)
             rec.blocks += 1
             del out

@@ -11,9 +11,10 @@ the design with ``rows`` fresh depth rows a request:
   ones have come back. A request's latency runs from when it was due to its
   assembled outcome; the generator's lateness is kept beside it.
 
-The window is ``seconds`` long. Rows count for the rate when they come back
-inside it; every request sent inside it must come back, within a minute of
-the drain's start, for the output check.
+A row the solver could not reuse takes its final answer from the fallback
+re-simulation it came back with. The window is ``seconds`` long. Rows count
+for the rate when they come back inside it; every request sent inside it
+must come back, within a minute of the drain's start, for the output check.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import time
 from typing import List
 
 import numpy as np
+
+from ..check import final_answers
 
 DRAIN_S = 60.0
 
@@ -59,13 +62,17 @@ class Driver:
         cycles = np.full(len(D), -1, np.int64)
         violated = np.zeros(len(D), np.int64)
         arrived = np.full(len(D), np.inf)
+        results = [None] * len(D)
         for cfg in handle.stream():
             i = cfg.index
             status[i], cycles[i], violated[i] = (cfg.status, cfg.cycles,
                                                  cfg.violated)
+            if cfg.status:                  # not REUSED: keep the fallback
+                results[i] = cfg.result
             arrived[i] = time.perf_counter()
         done = time.perf_counter()
-        self.rec.add_answers(D, status, cycles, violated, at=arrived)
+        self.rec.add_answers(D, status, cycles, violated, at=arrived,
+                             final=final_answers(status, cycles, results))
         if lat:
             self.rec.latencies.append((due, done - due))
 

@@ -3,6 +3,9 @@ them: each is a function ``plant(patch)`` that breaks the port through
 ``patch(owner, name, value)`` (``setattr``, or pytest's
 ``monkeypatch.setattr``). Used by ``tests/test_simbench_control.py`` on the
 CPU and by ``tools/control.py --fault`` on the card at a cell's own size.
+``FAULTS`` can touch every cell; ``FALLBACK_FAULTS`` only the rows that the
+solver cannot reuse, which a cell has where its design has non-blocking
+accesses or its rows deadlock.
 """
 from __future__ import annotations
 
@@ -54,5 +57,21 @@ def answer_altered(patch) -> None:
     patch(sparse, "solve_chains", solve)
 
 
+def fallback_skipped(patch) -> None:
+    """Rows the solver cannot reuse (deadlock, WAR cycle, violated) come
+    back with its verdict alone, without the full re-simulation."""
+    from repro_torch.core import dse
+    from repro_torch.sweep import scheduler
+    real = dse.materialize_block
+
+    def materialize(result, Du, status_u, cycles_u, violated_u,
+                    fallback_mask, *a, **kw):
+        return real(result, Du, status_u, cycles_u, violated_u,
+                    np.zeros_like(fallback_mask), *a, **kw)
+    patch(dse, "materialize_block", materialize)
+    patch(scheduler, "materialize_block", materialize)
+
+
 FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
           "answer_altered": answer_altered}
+FALLBACK_FAULTS = {"fallback_skipped": fallback_skipped}

@@ -2,9 +2,11 @@
 result line.
 
 The cell names a configuration (``simbench/configs/<config>.json``: the
-design function of ``repro_torch.designs`` and its parameters) and a traffic
-mix (``simbench/traffic/<mix>.json``: its ``entry``, which picks the driver
-in ``simbench/entries/``, and the parameters of ``simbench/traffic.py``).
+design function of ``repro_torch.designs`` and its parameters, whose frozen
+copy is ``simbench/reference/designs/<function>.py``) and a traffic mix
+(``simbench/traffic/<mix>.json``: its ``entry``, which picks the driver in
+``simbench/entries/``, and the parameters of ``simbench/traffic.py``); each
+is read from the checkout that the run starts in.
 Every metric of ``BENCHMARK.json`` is a reader ``simbench/metrics/<name>.py``
 with ``read(run)``, which returns a number or None when it finds nothing to
 read; a metric split by cells, ``<base>.<cells>``, takes the reader of
@@ -49,24 +51,29 @@ class Record:
         with self._lock:
             self.sent += k
 
-    def add_answers(self, D, status, cycles, violated, at) -> None:
+    def add_answers(self, D, status, cycles, violated, at,
+                    final=None) -> None:
+        """``final``: each row's final answer (``check.final_answers``);
+        where not given, a REUSED row's cycles, and none for the rest."""
         at = np.broadcast_to(np.asarray(at, float), (len(D),))
+        if final is None:
+            final = check.final_answers(status, cycles)
         with self._lock:
             self._answers.append((np.asarray(D), np.asarray(status),
                                   np.asarray(cycles), np.asarray(violated),
-                                  at.copy()))
+                                  at.copy(), np.asarray(final)))
 
     def answers(self):
-        """(rows, status, cycles, violated, arrival) over every answer, in
-        the order they were recorded. A row that never came back has status
-        -1 and arrival inf."""
+        """(rows, status, cycles, violated, arrival, final answer) over
+        every answer, in the order they were recorded. A row that never
+        came back has status -1 and arrival inf."""
         with self._lock:
             parts = list(self._answers)
         if not parts:
             z = np.zeros(0, np.int64)
-            return np.zeros((0, 0), np.int64), z, z, z, np.zeros(0)
+            return np.zeros((0, 0), np.int64), z, z, z, np.zeros(0), z
         return tuple(np.concatenate([p[i] for p in parts])
-                     for i in range(5))
+                     for i in range(6))
 
     def answered_in_window(self) -> int:
         at = self.answers()[4]
@@ -88,10 +95,12 @@ def load_reader(name: str):
 
 class Run:
     """One run of one cell. ``device`` is where the port runs: the card in a
-    measured run; the tests pass ``"cpu"`` (the kernels' plain versions)."""
+    measured run; the tests pass ``"cpu"`` (the kernels' plain versions).
+    ``root`` is the checkout whose ``simbench/reference/designs/`` holds the
+    design's frozen copy."""
 
     def __init__(self, spec: Dict, cell: Dict, config: Dict, mix: Dict,
-                 seed: int, device: str = "cuda"):
+                 seed: int, device: str = "cuda", root: Path = HERE.parent):
         self.spec, self.cell, self.config, self.mix = spec, cell, config, mix
         self.seed = int(seed)
         self.device = device
@@ -102,7 +111,8 @@ class Run:
         self.trace_s = 0.0      # stopping the profiler and reading its trace
         from .reference.simulate import Design
         self.design = Design(config["design"].rsplit(".", 1)[-1],
-                             config["params"])
+                             config["params"],
+                             Path(root) / "simbench" / "reference" / "designs")
         self._streams = traffic.streams(mix)
         self.rows = traffic.DepthRows(mix["depths"], len(self.design.fifos),
                                       self.seed, len(self._streams))
@@ -220,8 +230,8 @@ def load_cell(root: Path, workload: str):
     cell = cells[workload]
     cfg = {c["name"]: c for c in spec["configs"]}[cell["config"]]
     config = json.loads((root / cfg["file"]).read_text())
-    mix = json.loads((HERE / "traffic" / f"{cell['traffic']}.json")
-                     .read_text())
+    mix = json.loads((root / "simbench" / "traffic" /
+                      f"{cell['traffic']}.json").read_text())
     return spec, cell, config, mix
 
 
@@ -243,7 +253,7 @@ def main(argv, root: Path, t_start: float) -> int:
         print(f"simbench: the cell needs {need} CUDA device(s), this machine "
               f"has {have}", file=sys.stderr)
         return 2
-    run = Run(spec, cell, config, mix, args.seed, device="cuda:0")
+    run = Run(spec, cell, config, mix, args.seed, device="cuda:0", root=root)
     out = run.execute(args.seconds, bool(args.trace), t_start)
     if args.trace and run.timeline is None:
         print("simbench: the profiler saw no device operation in the traced "

@@ -25,7 +25,7 @@ sys.path[:1] = [str(ROOT), str(ROOT / "src")]
 import numpy as np  # noqa: E402
 
 from simbench import check, harness  # noqa: E402
-from simbench.faults import FAULTS  # noqa: E402
+from simbench.faults import FALLBACK_FAULTS, FAULTS  # noqa: E402
 from simbench.reference.simulate import simulate_rows  # noqa: E402
 
 
@@ -34,16 +34,19 @@ def float16_control(run, rows):
     return status, cycles, np.zeros(len(rows), np.int64)
 
 
+ALL_FAULTS = {**FAULTS, **FALLBACK_FAULTS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--device", default="cuda:0")
-    ap.add_argument("--fault", choices=sorted(FAULTS))
+    ap.add_argument("--fault", choices=sorted(ALL_FAULTS))
     args = ap.parse_args()
     if args.fault:
-        FAULTS[args.fault](setattr)
+        ALL_FAULTS[args.fault](setattr)
     spec, cell, config, mix = harness.load_cell(ROOT, args.workload)
     for seed in [int(s) for s in args.seeds.split(",")]:
         run = harness.Run(spec, cell, config, mix, seed, args.device)

@@ -18,6 +18,15 @@ stream of its own, and the streams never share a row:
   every run of a group's length holds the same depths, whatever the seed.
   Stream j of J takes every J-th group from its j-th, and starts its share
   over as a grid stream does.
+* ``{"kind": "box", "lo": [a_0, ...], "hi": [b_0, ...]}``: FIFO f's depth
+  ranges over a_f..b_f (0 allowed; a number in place of a list stands for
+  every FIFO), as a designer sizes each FIFO on a scale of its own. Each row
+  of the box once, in an order permuted by the seed, which the generator
+  never holds: position p of the order is the p-th index of the box through
+  a seeded bijection of the box's index space (a Feistel network over its
+  bits, cycle-walking back into the box), so a draw costs memory for the
+  rows drawn, whatever the box's size. The streams share the order as grid
+  streams do.
 
 Open-loop arrivals (``arrivals(...)``) are the quantiles of an exponential
 distribution at the tenant's rate, in an order permuted by the seed: every
@@ -26,6 +35,7 @@ its amount.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 import threading
 from typing import Dict, List
@@ -46,13 +56,16 @@ class DepthRows:
 
     def __init__(self, spec: Dict, n_fifos: int, seed: int, n_streams: int):
         self.kind = spec["kind"]
-        self.lo, self.hi = int(spec["lo"]), int(spec["hi"])
-        if not 1 <= self.lo <= self.hi:
-            raise ValueError(f"depths need 1 <= lo <= hi, got {spec}")
         self.F = int(n_fifos)
         self.J = int(n_streams)
         self.taken = [0] * self.J
         self._lock = threading.Lock()
+        if self.kind == "box":
+            self._box(spec, seed)
+            return
+        self.lo, self.hi = int(spec["lo"]), int(spec["hi"])
+        if not 1 <= self.lo <= self.hi:
+            raise ValueError(f"depths need 1 <= lo <= hi, got {spec}")
         self.side = self.hi - self.lo + 1
         if self.kind not in ("grid", "latin"):
             raise ValueError(f"unknown depth kind {self.kind!r}")
@@ -74,6 +87,8 @@ class DepthRows:
         with self._lock:
             start = self.taken[stream]
             self.taken[stream] = start + k
+        if self.kind == "box":
+            return self._box_rows(stream, start, k)
         pos = np.arange(start, start + k, dtype=np.int64)
         if self.kind == "grid":
             return self._grid(stream, pos)
@@ -105,6 +120,48 @@ class DepthRows:
             h = 0 if f == 0 else (g // self.side ** (f - 1)) % self.side
             rows[:, f] = self.sigma[f][(i + h) % self.side] + self.lo
         return rows
+
+    # -- box ----------------------------------------------------------------
+    _ROUNDS = 8
+
+    def _box(self, spec: Dict, seed: int) -> None:
+        lo, hi = (np.broadcast_to(np.asarray(spec[k], np.int64), (self.F,))
+                  for k in ("lo", "hi"))
+        if not (0 <= lo).all() or not (lo <= hi).all():
+            raise ValueError(f"depths need 0 <= lo <= hi per FIFO, got {spec}")
+        self.lo = [int(x) for x in lo]
+        self.sides = [int(b - a + 1) for a, b in zip(lo, hi)]
+        self.size = math.prod(self.sides)          # a Python int: any size
+        if self.J > self.size:
+            raise ValueError(f"a box of {self.size} rows cannot feed "
+                             f"{self.J} streams")
+        self.bits = max((self.size - 1).bit_length(), 2)
+        key = rng_for(seed, "rows").bytes(16)
+        self._keys = [key + bytes([i]) for i in range(self._ROUNDS)]
+
+    def _feistel(self, x: int) -> int:
+        """One pass of the seeded bijection of [0, 2**bits)."""
+        lb = self.bits // 2
+        widths = (lb, self.bits - lb)               # of (left, right)
+        left, right = x >> widths[1], x & ((1 << widths[1]) - 1)
+        for i, key in enumerate(self._keys):
+            wl, wr = widths[i % 2], widths[1 - i % 2]
+            h = hashlib.blake2b(right.to_bytes(wr // 8 + 1, "little"),
+                                digest_size=wl // 8 + 1, key=key).digest()
+            f = int.from_bytes(h, "little") & ((1 << wl) - 1)
+            left, right = right, left ^ f
+        return (left << widths[1 - self._ROUNDS % 2]) | right
+
+    def _box_rows(self, stream: int, start: int, k: int) -> np.ndarray:
+        share = -(-(self.size - stream) // self.J)
+        rows = np.empty((k, self.F), np.int64)
+        for i in range(k):
+            idx = self._feistel(stream + self.J * ((start + i) % share))
+            while idx >= self.size:                 # walk back into the box
+                idx = self._feistel(idx)
+            for f in range(self.F - 1, -1, -1):     # the last FIFO's digit
+                idx, rows[i, f] = divmod(idx, self.sides[f])
+        return rows + np.asarray(self.lo, np.int64)
 
 
 def arrivals(rate_per_s: float, seconds: float, seed: int) -> np.ndarray:
